@@ -71,17 +71,16 @@ def _small_model(tmp_path):
 
 
 def test_ragged_input_and_unported_options_raise(tmp_path):
+    """Ragged input classifies (the records route); validation and the
+    xxh3 genus filter are still unported and raise."""
     model = _small_model(tmp_path)
     ragged = tmp_path / "ragged.fasta"
     ragged.write_text(">r1\n" + "A" * 100 + "\n>r2\n" + "C" * 120 + "\n", encoding="utf-8")
-    with pytest.raises(NotImplementedError, match="records slice"):
-        model.predict(ragged)
+    assert model.predict(ragged).num_kmers == {"r1": 80, "r2": 100}
     even = tmp_path / "even.fasta"
     even.write_text(">r1\n" + "A" * 100 + "\n>r2\n" + "C" * 100 + "\n", encoding="utf-8")
-    with pytest.raises(NotImplementedError, match="records slice"):
+    with pytest.raises(NotImplementedError, match="validation slice"):
         model.predict(even, validation=True)
-    with pytest.raises(NotImplementedError, match="records slice"):
-        model.fit(tmp_path)
     assert set(model.predict(even).hits) == {"r1", "r2"}
     with pytest.raises(NotImplementedError, match="xxh3"):
         ProbabilisticSingleFilterModel(21, "G", None, None, "Genus", tmp_path, hash_family="xxh3")
@@ -94,3 +93,21 @@ def test_saved_model_loads_back(tmp_path):
     loaded = ProbabilisticFilterModel.load(tmp_path / "tiny-species.json", device="cpu")
     assert loaded.to_dict() == model.to_dict()
     np.testing.assert_array_equal(loaded.index.table, model.index.table)
+
+
+def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """An edited csrc header renames (so rebuilds) every library whose
+    source includes it, and no other."""
+    import shutil
+
+    from xspect2_tpu_torch.ops import _kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    before = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
+    assert all((csrc / f"{name}.cu").exists() for name in _kernels.SIGNATURES)
+    header = csrc / "kmer_probe.cuh"
+    header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
+    changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
+    assert changed == {"reads_query", "records_query"}

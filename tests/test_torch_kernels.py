@@ -90,3 +90,77 @@ def test_kernel_wrappers_raise_on_bad_input(cuda_device):
         query.reads_query(codes, engine.table, step=1, **engine.geometry())
     with pytest.raises(ValueError):
         query.reads_query(codes.to(torch.uint8), engine.table.cpu(), step=1, **engine.geometry())
+
+
+def _records(rng, genomes, n, lo, hi, k=21):
+    """Records of lengths in [lo, hi) from random classes, some with an N,
+    half reverse-complemented."""
+    out = []
+    for i in range(n):
+        g = genomes[int(rng.integers(0, len(genomes)))]
+        length = int(rng.integers(lo, hi))
+        s = int(rng.integers(0, len(g) - length))
+        c = g[s : s + length].copy()
+        if i % 2:
+            c = 3 - c[::-1]
+        if i % 3 == 0:
+            c[int(rng.integers(0, length))] = 255
+        out.append((f"r{i}", np.ascontiguousarray(c)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_records,step", [(1, 1), (9, 3), (300, 1)])
+def test_records_wire_kernel_matches_plain(cuda_device, num_records, step):
+    rng = np.random.default_rng(num_records + step)
+    genomes = [rng.integers(0, 4, size=5000, dtype=np.uint8)]
+    batch = query.prepare_batch(_records(rng, genomes, num_records, 22, 400), 21, step=step, chunk=8192)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    _, _, offsets = query.packed_wire_for_batch(batch, max_records)
+    offsets = torch.from_numpy(offsets).to(cuda_device)
+    before = query.records_wire.launches
+    rec, valid = query.records_wire(offsets, batch.num_positions, k=21, step=step)
+    assert query.records_wire.launches == before + 1
+    want_rec, want_valid = query.records_wire_plain(offsets, batch.num_positions, k=21, step=step)
+    torch.testing.assert_close(rec, want_rec, rtol=0, atol=0)
+    assert torch.equal(valid, want_valid)
+    np.testing.assert_array_equal(valid.cpu().numpy(), batch.valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("step", [1, 3])
+def test_records_query_kernel_matches_plain_and_host(cuda_device, name, step):
+    rng = np.random.default_rng(len(name) + step)
+    idx, genomes = _index(*GEOMETRIES[name], rng)
+    records = _records(rng, genomes, 40, 22, 2500)
+    engine = query.DeviceQueryEngine(idx, device=cuda_device, chunk=8192)
+    batch = query.prepare_batch(records, 21, step=step, chunk=engine.chunk)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    geom = dict(max_records=max_records, **engine.geometry())
+    codes, rec_ids, valid = (torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid))
+    before = query.records_query.launches
+    got = query.records_query(codes, rec_ids, valid, engine.table, min_record_len=22, **geom)
+    assert query.records_query.launches == before + 1
+    want = query.records_query_plain(codes, rec_ids, valid, engine.table, **geom)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21, step=step)) for _, c in records])
+    for wire in ("packed", "raw"):
+        np.testing.assert_array_equal(engine.count_hits(batch, wire=wire), host)
+
+
+@pytest.mark.cuda
+def test_records_query_counts_in_global_memory_when_a_span_does_not_fit(cuda_device):
+    """A wrong shortest-record hint gives blocks spans wider than their
+    shared counters: those blocks count with global atomics, exactly."""
+    rng = np.random.default_rng(1)
+    idx, genomes = _index(512, 3, rng, length=600)
+    records = _records(rng, genomes, 200, 22, 40)
+    batch = query.prepare_batch(records, 21, chunk=8192)
+    engine = query.DeviceQueryEngine(idx, device=cuda_device)
+    geom = dict(max_records=256, **engine.geometry())
+    codes, rec_ids, valid = (torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid))
+    got = query.records_query(codes, rec_ids, valid, engine.table, min_record_len=10**6, **geom)
+    want = query.records_query_plain(codes, rec_ids, valid, engine.table, **geom)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(got.sum()) > 0

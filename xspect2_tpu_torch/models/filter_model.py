@@ -1,34 +1,48 @@
-"""Multi-class probabilistic filter model, read-classification path.
+"""Multi-class probabilistic filter model.
 
-The JAX package's ``ProbabilisticFilterModel`` as far as classifying a
-file of equal-length reads goes: ``load``, ``predict(Path)`` and the
-per-record hit dictionaries, with hit counts from
-:class:`~xspect2_tpu_torch.ops.query.DeviceQueryEngine`.  Training,
-ragged records (assemblies) and the validation post-filter belong to
-the records slice of the port and raise ``NotImplementedError``.
+The JAX package's ``ProbabilisticFilterModel``: ``fit`` from one
+sequence file per class, ``calculate_hits``, ``predict`` over a file, a
+``SeqRecord``, a record list or an iterator, ``save`` and ``load``, with
+hit counts from :class:`~xspect2_tpu_torch.ops.query.DeviceQueryEngine`.
+
+``predict`` on a file takes one of two routes, as the JAX package does:
+a file of at least 512 records of one length (a FASTQ run) goes through
+the uniform-reads route; every other input (assemblies, small files,
+record lists) through the records route.  The validation post-filter
+is not ported and raises ``NotImplementedError``.
 """
 
 import json
 import math
 from pathlib import Path
+from typing import Any, Iterable, Iterator
 
 import numpy as np
 
 from xspect2_tpu_torch import native, resolve_device
+from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
-from xspect2_tpu_torch.definitions import slugify
+from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings, slugify
+from xspect2_tpu_torch.io.fasta import SeqRecord, get_record_iterator
 from xspect2_tpu_torch.models.result import ModelResult
-from xspect2_tpu_torch.ops.query import DeviceQueryEngine
+from xspect2_tpu_torch.ops.query import DeviceQueryEngine, prepare_batch
 
-RECORDS_SLICE = (
-    "the records slice of the PyTorch port (ragged records, training and "
-    "validation) is not ported yet; use xspect2_tpu"
+VALIDATION_SLICE = (
+    "validation=True (the alignment post-filter against NCBI reference "
+    "genomes) belongs to the validation slice of the PyTorch port and is "
+    "not ported yet; use xspect2_tpu"
 )
 
+# a file of at least this many records of one length takes the reads
+# route; anything else takes the records route (the JAX package's rule)
+_MIN_FAST_READS = 512
 # reads per padding unit, and bases per device batch: a large FASTQ
 # streams through the device in slices of at most this many bases
 _READS_PER_CHUNK = 4096
 _MAX_BATCH_BASES = 1 << 28
+# records route: bases and records per device batch
+_MAX_RECORD_BATCH_BASES = 1 << 23
+_MAX_RECORD_BATCH_RECORDS = 65536
 # device batches in flight at once: the next slice's host packing
 # overlaps the previous slice's device work, and no more than this many
 # result buffers stay resident
@@ -99,8 +113,60 @@ class ProbabilisticFilterModel:
             "training_accessions": self.training_accessions,
         }
 
-    def fit(self, *args, **kwargs) -> None:
-        raise NotImplementedError(f"fit: {RECORDS_SLICE}")
+    # ------------------------------------------------------------------ training
+
+    def _training_files(self, dir_path: Path) -> list[Path]:
+        return [
+            f
+            for f in sorted(dir_path.iterdir())
+            if f.is_file() and f.suffix[1:] in fasta_endings + fastq_endings
+        ]
+
+    def fit(
+        self,
+        dir_path: Path,
+        display_names: dict | None = None,
+        training_accessions: dict[str, list[str]] | None = None,
+    ) -> None:
+        """Build the index from one sequence file per class in ``dir_path``.
+
+        The class name is the file name up to its first "."; the index
+        is sized for the class with the most k-mers and saved under
+        :meth:`get_index_path`.
+        """
+        if display_names is None:
+            display_names = {}
+        if not isinstance(dir_path, Path):
+            raise ValueError("Invalid directory path, must be a pathlib.Path object")
+        if not dir_path.exists():
+            raise ValueError("Directory path does not exist")
+        if not dir_path.is_dir():
+            raise ValueError("Directory path must be a directory")
+        self.training_accessions = training_accessions
+        files = self._training_files(dir_path)
+        if not files:
+            raise ValueError("No valid files found in directory. Must be fasta or fastq")
+
+        class_names = []
+        for file in files:
+            doc_name = file.name.split(".")[0]
+            class_names.append(doc_name)
+            self.display_names[doc_name] = display_names.get(file.stem, file.stem)
+
+        parsed = [native.parse_file(file)[:2] for file in files]
+        kmer_counts = [
+            int(np.maximum(0, np.diff(offsets) - self.k + 1).sum()) for _, offsets in parsed
+        ]
+        index = BlockedBitSlicedIndex.create(
+            self.k, class_names, max(kmer_counts), fpr=self.fpr, num_hashes=self.num_hashes
+        )
+        self.num_hashes = index.num_hashes
+        for ci, (codes, offsets) in enumerate(parsed):
+            for r in range(len(offsets) - 1):
+                native.insert_kmers(index, ci, codes[offsets[r] : offsets[r + 1]])
+        self.index = index
+        self._engine = None
+        index.save(self.get_index_path())
 
     # ------------------------------------------------------------------ inference
 
@@ -122,6 +188,29 @@ class ProbabilisticFilterModel:
         excluded = set(exclude_ids) if exclude_ids else ()
         return {names[i]: int(counts[i]) for i in order if names[i] not in excluded}
 
+    def _record_hits(
+        self, counts: np.ndarray, exclude_ids: list[str] | None, display_name: bool
+    ) -> dict[str, int]:
+        rec_hits = self._hits_dict_from_counts(counts, exclude_ids)
+        if display_name:
+            rec_hits = {
+                f"{key} -{self.display_names.get(key, 'Unknown').replace(self.model_display_name, '', 1)}": v
+                for key, v in rec_hits.items()
+            }
+        return rec_hits
+
+    def calculate_hits(
+        self, sequence, exclude_ids: list[str] | None = None, step: int = 1
+    ) -> dict:
+        """Hit counts of one sequence (a string or a ``SeqRecord``) per class."""
+        seq = sequence.seq if isinstance(sequence, SeqRecord) else sequence
+        if not isinstance(seq, str):
+            raise ValueError("Invalid sequence, must be a string or SeqRecord")
+        if not len(seq) > self.k:
+            raise ValueError("Invalid sequence, must be longer than k")
+        counts = self.engine.count_hits_records([("seq", dna.encode(seq))], step=step)[0]
+        return self._hits_dict_from_counts(counts, exclude_ids)
+
     def _count_reads(self, mat: np.ndarray, step: int) -> np.ndarray:
         """Hit counts of an [n, L] read matrix, streamed in bounded slices."""
         n, length = mat.shape
@@ -142,51 +231,102 @@ class ProbabilisticFilterModel:
         parts.extend(out[:m].cpu().numpy() for out, m in pending)
         return np.concatenate(parts).astype(np.int64)
 
-    def predict(
-        self,
-        sequence_input: Path,
-        exclude_ids: list[str] | None = None,
-        step: int = 1,
-        display_name: bool = False,
-        validation: bool = False,
-    ) -> ModelResult:
-        """Classify a FASTA/FASTQ file of equal-length records.
-
-        Results equal the JAX package's on the same model and file.
-        """
-        if validation:
-            raise NotImplementedError(f"validation: {RECORDS_SLICE}")
-        if not isinstance(sequence_input, Path):
-            raise NotImplementedError(
-                f"predict takes a file path here; record lists need {RECORDS_SLICE}"
-            )
-        codes, offsets, ids = native.parse_file(sequence_input)
+    def _predict_reads_file(
+        self, path: Path, exclude_ids: list[str] | None, step: int, display_name: bool
+    ) -> ModelResult | None:
+        """The uniform-reads route: a file of at least 512 records of one
+        length, parsed natively into one [N, L] matrix.  Returns None for
+        any other file, which then takes the records route."""
+        codes, offsets, ids = native.parse_file(path)
         n = len(ids)
-        if n == 0:
-            raise ValueError("No sequences found in input")
+        if n < _MIN_FAST_READS:
+            return None
         lengths = np.diff(offsets)
         if not (lengths == lengths[0]).all():
-            raise NotImplementedError(
-                f"{sequence_input} holds records of several lengths: {RECORDS_SLICE}"
-            )
+            return None
         length = int(lengths[0])
         if not length > self.k:
             raise ValueError("Invalid sequence, must be longer than k")
 
         counts = self._count_reads(codes.reshape(n, length), step)
         nk = math.ceil((length - self.k + 1) / step)
+        hits = {rid: self._record_hits(counts[i], exclude_ids, display_name) for i, rid in enumerate(ids)}
+        num_kmers = {rid: nk for rid in ids}
+        return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
+
+    def _iter_record_batches(
+        self, records: Iterable[SeqRecord], max_bases: int = _MAX_RECORD_BATCH_BASES
+    ) -> Iterator[list[SeqRecord]]:
+        batch: list[SeqRecord] = []
+        bases = 0
+        for rec in records:
+            batch.append(rec)
+            bases += len(rec.seq)
+            if bases >= max_bases or len(batch) >= _MAX_RECORD_BATCH_RECORDS:
+                yield batch
+                batch, bases = [], 0
+        if batch:
+            yield batch
+
+    def predict(
+        self,
+        sequence_input: SeqRecord | list | Iterator | Path,
+        exclude_ids: list[str] | None = None,
+        step: int = 1,
+        display_name: bool = False,
+        validation: bool = False,
+    ) -> ModelResult:
+        """Classify a file, a ``SeqRecord``, a record list or an iterator.
+
+        Results equal the JAX package's on the same model and input.
+        """
+        if validation:
+            raise NotImplementedError(VALIDATION_SLICE)
+        if isinstance(sequence_input, Path):
+            fast = self._predict_reads_file(sequence_input, exclude_ids, step, display_name)
+            if fast is not None:
+                return fast
+
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
-        for i, rid in enumerate(ids):
-            rec_hits = self._hits_dict_from_counts(counts[i], exclude_ids)
-            if display_name:
-                rec_hits = {
-                    f"{key} -{self.display_names.get(key, 'Unknown').replace(self.model_display_name, '', 1)}": v
-                    for key, v in rec_hits.items()
-                }
-            hits[rid] = rec_hits
-            num_kmers[rid] = nk
+        for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
+            batch = prepare_batch(
+                [(rec.id, dna.encode(rec.seq)) for rec in rec_batch],
+                self.k,
+                step=step,
+                chunk=self.engine.chunk,
+            )
+            counts = self.engine.count_hits(batch)
+            for i, rec in enumerate(rec_batch):
+                hits[rec.id] = self._record_hits(counts[i], exclude_ids, display_name)
+                num_kmers[rec.id] = batch.num_kmers[i]
+        if not hits:
+            raise ValueError("No sequences found in input")
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
+
+    def _as_record_iterable(self, sequence_input) -> Iterable[SeqRecord]:
+        if isinstance(sequence_input, SeqRecord):
+            return [sequence_input]
+        if isinstance(sequence_input, Path):
+            return get_record_iterator(sequence_input)
+        if isinstance(sequence_input, (list, tuple)):
+            if not all(isinstance(r, SeqRecord) for r in sequence_input):
+                raise ValueError("Invalid sequence input, must be SeqRecord objects")
+            return sequence_input
+        if hasattr(sequence_input, "__iter__") or hasattr(sequence_input, "__next__"):
+            return sequence_input
+        raise ValueError(
+            "Invalid sequence input, must be a SeqRecord, a list of SeqRecords, "
+            "a record iterator, or a Path object to a fasta/fastq file"
+        )
+
+    def _count_kmers(self, sequence_input: Any, step: int = 1) -> int:
+        """ceil((len - k + 1) / step) summed over the input sequences."""
+        if isinstance(sequence_input, str):
+            return math.ceil((len(sequence_input) - self.k + 1) / step)
+        if isinstance(sequence_input, SeqRecord):
+            return self._count_kmers(sequence_input.seq, step=step)
+        return sum(self._count_kmers(seq, step=step) for seq in sequence_input)
 
     # ------------------------------------------------------------------ persistence
 

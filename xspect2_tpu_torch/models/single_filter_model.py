@@ -8,6 +8,9 @@ port and raises ``NotImplementedError``.
 
 from pathlib import Path
 
+from xspect2_tpu_torch import native
+from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
+from xspect2_tpu_torch.io.fasta import get_record_iterator
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
 
 
@@ -50,6 +53,31 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
 
     def get_index_path(self) -> Path:
         return self.base_path / self.slug() / "filter.bbsi"
+
+    def fit(
+        self,
+        file_path: Path,
+        display_name: str,
+        training_accessions: list[str] | None = None,
+    ) -> None:
+        """Insert every canonical k-mer of the genus file into the filter.
+
+        The one class is the file's stem; the probe count is picked
+        automatically, as the JAX package does.
+        """
+        self.training_accessions = training_accessions
+        total_length = sum(len(record.seq) for record in get_record_iterator(file_path))
+        index = BlockedBitSlicedIndex.create(
+            self.k, [file_path.stem], max(1, total_length - self.k + 1),
+            fpr=self.fpr, num_hashes=None,
+        )
+        codes, offsets, _ids = native.parse_file(file_path)
+        for r in range(len(offsets) - 1):
+            native.insert_kmers(index, 0, codes[offsets[r] : offsets[r + 1]])
+        self.index = index
+        self._engine = None
+        self.display_names[file_path.stem] = display_name
+        index.save(self.get_index_path())
 
     @classmethod
     def _from_metadata(cls, model_json: dict, base_path: Path, device):

@@ -1,18 +1,24 @@
-"""SVM-headed species model, read-classification path.
+"""SVM-headed species model.
 
-The filter model's per-class score totals feed an SVC fitted with
-sklearn on the model's ``scores.csv``, as in the JAX package; the fitted
-machine is carried into :class:`~xspect2_tpu_torch.models.svm_head.SVMHead`
-and predicts on the model's device.  ``exclude_ids`` removes both
-feature columns and label rows.
+``fit`` builds the filter index, then scores each SVM training genome
+against it through the records route and writes ``scores.csv``
+(``file,<score per class sorted by class id>,label_id``), as the JAX
+package does.  The filter model's per-class score totals feed an SVC
+fitted on ``scores.csv`` by
+:func:`~xspect2_tpu_torch.models.svm_head.fit_ovo_svc` (libsvm's solver
+in numpy); the fitted machine is an
+:class:`~xspect2_tpu_torch.models.svm_head.SVMHead` and predicts on the
+model's device.  ``exclude_ids`` removes both feature columns and
+label rows.
 """
 
 import csv
 from pathlib import Path
 
+from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
 from xspect2_tpu_torch.models.result import ModelResult
-from xspect2_tpu_torch.models.svm_head import SVMHead, fit_svc
+from xspect2_tpu_torch.models.svm_head import fit_ovo_svc
 
 
 class _ConstantPredictor:
@@ -68,6 +74,50 @@ class ProbabilisticFilterSVMModel(ProbabilisticFilterModel):
             "svm_accessions": self.svm_accessions,
         }
 
+    def set_svm_params(self, kernel: str, c: float) -> None:
+        self.kernel = kernel
+        self.c = c
+        self._svm_cache.clear()
+        self.save()
+
+    # ------------------------------------------------------------------ training
+
+    def fit(
+        self,
+        dir_path: Path,
+        svm_path: Path,
+        display_names: dict[str, str] | None = None,
+        svm_step: int = 1,
+        training_accessions: dict[str, list[str]] | None = None,
+        svm_accessions: dict[str, list[str]] | None = None,
+    ) -> None:
+        """Build the filter index, then write scores.csv for the SVM.
+
+        ``svm_path`` holds one folder per label; each sequence file in it
+        is one training genome, scored at ``svm_step``.
+        """
+        super().fit(
+            dir_path, display_names=display_names, training_accessions=training_accessions
+        )
+        self.svm_accessions = svm_accessions
+        score_list = []
+        for species_folder in sorted(svm_path.iterdir()):
+            if not species_folder.is_dir():
+                continue
+            for file in sorted(species_folder.iterdir()):
+                if file.suffix[1:] not in fasta_endings + fastq_endings:
+                    continue
+                res = ProbabilisticFilterModel.predict(self, file, step=svm_step)
+                scores = dict(sorted(res.get_scores()["total"].items()))
+                row = ",".join(str(score) for score in scores.values())
+                score_list.append(f"{file.stem},{row},{species_folder.name}")
+        keys = sorted(self.display_names.keys())
+        score_list.insert(0, f"file,{','.join(keys)},label_id")
+        (self.base_path / self.slug() / "scores.csv").write_text(
+            "\n".join(score_list), encoding="utf-8"
+        )
+        self._svm_cache.clear()
+
     # ------------------------------------------------------------------ inference
 
     def predict(
@@ -121,8 +171,8 @@ class ProbabilisticFilterSVMModel(ProbabilisticFilterModel):
             if len(set(y_train)) == 1:
                 self._svm_cache[key] = _ConstantPredictor(y_train[0])
             else:
-                svc = fit_svc(x_train, y_train, self.kernel, self.c)
-                self._svm_cache[key] = SVMHead.from_sklearn(svc).to(self.device)
+                head = fit_ovo_svc(x_train, y_train, self.kernel, self.c)
+                self._svm_cache[key] = head.to(self.device)
         return self._svm_cache[key]
 
     # ------------------------------------------------------------------ persistence

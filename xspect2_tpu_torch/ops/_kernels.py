@@ -5,13 +5,15 @@ into its own shared library with a plain C interface under
 ``build/torch_kernels/`` at the repository root (``build/`` is in
 ``.gitignore``), and loads with ``ctypes``.  The build happens at first
 use, under a file lock, so concurrent processes build once; a library
-is named by the hash of its source, so an edited source builds anew.
-Nothing here runs at import time.
+is named by the hash of its source and of every ``csrc/`` header it
+includes, so an edited source or header builds anew.  Nothing here
+runs at import time.
 """
 
 import ctypes
 import fcntl
 import hashlib
+import re
 import shutil
 import subprocess
 import time
@@ -37,7 +39,14 @@ SIGNATURES = {
         [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
          _i64, _i32, _vp],
     ),
+    "records_wire": ("xs_records_wire", [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp]),
+    "records_query": (
+        "xs_records_query",
+        [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
+         _i64, _i32, _vp],
+    ),
 }
+_INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}  # kernel name -> configured ctypes entry point
 
@@ -49,9 +58,23 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _sources(name: str) -> list[Path]:
+    """``<name>.cu`` and every header it includes from ``csrc/``, transitively."""
+    found: list[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in found:
+            found.append(path)
+            todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text(encoding="utf-8"))]
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256()
+    for path in _sources(name):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, str]:

@@ -1,7 +1,8 @@
-"""Uniform-read k-mer query on the device: the read wire, two kernels, the engine.
+"""k-mer query on the device: the wires, four kernels, the engine.
 
-The read path of the JAX package (``xspect2_tpu/ops/query.py``) in
-three steps:
+Two paths of the JAX package (``xspect2_tpu/ops/query.py``):
+
+Uniform reads (the FASTQ path):
 
 1. :func:`pack_reads_wire` (host) 2-bit packs an [N, L] code matrix and
    lists the invalid bases as (row, column) patches;
@@ -11,25 +12,47 @@ three steps:
    canonicalizes and hashes every kept k-mer window, ANDs its probe
    words and counts per-read, per-class hits.
 
+Ragged records (assemblies, record lists):
+
+1. :func:`prepare_batch` (host) flattens records into one position
+   stream padded to a power-of-two number of chunks
+   (:class:`PreparedBatch`); :func:`packed_wire_for_batch` 2-bit packs
+   it with a flat invalid-base patch list and the record offsets;
+2. K1 unpacks the flat wire as one row;
+3. :func:`records_wire` (kernel K4, ``csrc/records_wire.cu``) derives
+   each position's record id and window validity from the offsets;
+4. :func:`records_query` (kernel K3, ``csrc/records_query.cu``) counts
+   per-record, per-class hits of every valid window.  The raw wire
+   ships codes, record ids and validity and goes to K3 directly.
+
 Each kernel wrapper has a plain PyTorch version of the same function
 beside it.  The wrapper uses the plain version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its launches in its ``launches`` attribute.
 """
 
+import math
+from dataclasses import dataclass, field
+
 import numpy as np
 import torch
 
 from xspect2_tpu_torch import native, resolve_device
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
+from xspect2_tpu_torch.core.dna import INVALID
 from xspect2_tpu_torch.core.hashing import MASK32, kmer_hash_words_torch
 from xspect2_tpu_torch.ops import _kernels
 
+# positions per chunk of a prepared batch (the JAX package's default)
+DEFAULT_CHUNK = 1 << 16
 # reads per pass of the plain read query: bounds its int64 intermediates
 _PLAIN_READS = 8192
-# shared-memory bytes for K2's per-block (read, class) counters
+# positions per pass of the plain records query, for the same reason
+_PLAIN_POSITIONS = 1 << 20
+# shared-memory bytes for K2's per-block (read, class) and K3's
+# per-block (record, class) counters
 _SHARED_COUNTER_BYTES = 32768
-# kept windows handled by one K2 thread block
+# kept windows handled by one K2 thread block, positions by one K3 block
 _WINDOWS_PER_BLOCK = 2048
 
 
@@ -90,6 +113,130 @@ def _pad_patch_list(arrays, sentinels):
         padded[:m] = arr
         out.append(padded)
     return tuple(out)
+
+
+# ---------------------------------------------------------------- records batch
+
+
+@dataclass
+class PreparedBatch:
+    """Host-prepared flat batch of records for one device query call."""
+
+    codes: np.ndarray  # uint8 [num_positions + k - 1]
+    rec_ids: np.ndarray  # int32 [num_positions]
+    valid: np.ndarray  # bool  [num_positions]  (k-mer start validity)
+    record_names: list[str] = field(default_factory=list)
+    num_kmers: list[int] = field(default_factory=list)  # per record, ceil((len-k+1)/step)
+    # record start positions in the flat code tensor ([num_records + 1],
+    # last entry = total real bases); the compact wire derives rec_ids
+    # and validity on the device from these.  None for fixed batches.
+    offsets: np.ndarray | None = None
+    # sparse-sampling step baked into ``valid`` as a MASK (each record's
+    # phase restarts at its own offset), so it does not reduce the
+    # positions the device visits
+    step: int = 1
+    # device tensors of the compact wire, keyed by (max_records, device):
+    # engines querying the same batch share one pack and one copy
+    _device_wire: dict = field(default_factory=dict, repr=False, compare=False)
+
+    @property
+    def num_records(self) -> int:
+        return len(self.record_names)
+
+    @property
+    def num_positions(self) -> int:
+        return len(self.rec_ids)
+
+
+def prepare_batch(records, k: int, step: int = 1, chunk: int = DEFAULT_CHUNK):
+    """Flatten ``(name, codes_uint8)`` records into a :class:`PreparedBatch`.
+
+    Every record must be strictly longer than k.  The position axis is
+    padded to a power-of-two number of ``chunk``-sized chunks, plus a
+    k-1 halo of invalid codes; padding positions have record id 0 and
+    are never valid.
+    """
+    names = []
+    num_kmers = []
+    code_parts = []
+    rec_id_parts = []
+    valid_parts = []
+    for idx, (name, codes) in enumerate(records):
+        n = len(codes)
+        if not n > k:
+            raise ValueError("Invalid sequence, must be longer than k")
+        names.append(name)
+        nk = n - k + 1
+        num_kmers.append(math.ceil(nk / step))
+        code_parts.append(codes)
+        rec_id_parts.append(np.full(n, idx, dtype=np.int32))
+        v = np.zeros(n, dtype=bool)
+        v[0:nk:step] = True
+        valid_parts.append(v)
+
+    codes = np.concatenate(code_parts) if code_parts else np.zeros(0, dtype=np.uint8)
+    rec_ids = np.concatenate(rec_id_parts) if rec_id_parts else np.zeros(0, np.int32)
+    valid = np.concatenate(valid_parts) if valid_parts else np.zeros(0, dtype=bool)
+
+    n_pos = len(rec_ids)
+    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
+    codes_pad = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
+    codes_pad[:n_pos] = codes
+    rec_ids_pad = np.zeros(n_pad, dtype=np.int32)
+    rec_ids_pad[:n_pos] = rec_ids
+    valid_pad = np.zeros(n_pad, dtype=bool)
+    valid_pad[:n_pos] = valid
+
+    offsets = np.zeros(len(names) + 1, dtype=np.int32)
+    np.cumsum([len(c) for c in code_parts], out=offsets[1:])
+    return PreparedBatch(codes_pad, rec_ids_pad, valid_pad, names, num_kmers, offsets, step)
+
+
+def prepare_fixed_batch(
+    codes_matrix: np.ndarray, k: int, step: int = 1, chunk: int = DEFAULT_CHUNK
+) -> PreparedBatch:
+    """:func:`prepare_batch` for N equal-length reads ([N, L]), vectorized.
+
+    The batch carries no offsets, so it travels on the raw wire.
+    """
+    n, length = codes_matrix.shape
+    if not length > k:
+        raise ValueError("Invalid sequence, must be longer than k")
+    nk = length - k + 1
+    n_pos = n * length
+    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
+
+    codes = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
+    codes[:n_pos] = codes_matrix.reshape(-1)
+    rec_ids = np.zeros(n_pad, dtype=np.int32)
+    rec_ids[:n_pos] = np.repeat(np.arange(n, dtype=np.int32), length)
+    valid_row = np.zeros(length, dtype=bool)
+    valid_row[0:nk:step] = True
+    valid = np.zeros(n_pad, dtype=bool)
+    valid[:n_pos] = np.broadcast_to(valid_row, (n, length)).reshape(-1)
+    return PreparedBatch(
+        codes, rec_ids, valid, [f"read{i}" for i in range(n)], [math.ceil(nk / step)] * n
+    )
+
+
+def packed_wire_for_batch(batch: PreparedBatch, max_records: int):
+    """Compact device wire of a prepared batch: ``(packed, bad_pos, offsets)``.
+
+    2-bit packed codes (uint8 [ceil(len(codes)/4)]), the positions of
+    the real records' invalid bases padded to a power of two with the
+    sentinel ``len(batch.codes)`` (one past the flat code tensor, so the
+    unpack drops it), and the offsets padded to ``max_records + 1``
+    entries with the total real base count.  Padding positions are not
+    patched: no valid window reads them.
+    """
+    packed, _bad = native.pack_2bit(batch.codes[None, :])
+    packed = packed.reshape(-1)
+    n_real = int(batch.offsets[-1])
+    bad_pos = np.nonzero(batch.codes[:n_real].astype(np.uint8) > 3)[0].astype(np.int32)
+    (bad_pos,) = _pad_patch_list((bad_pos,), (len(batch.codes),))
+    offsets = np.full(max_records + 1, n_real, dtype=np.int32)
+    offsets[: len(batch.offsets)] = batch.offsets
+    return packed, bad_pos, offsets
 
 
 # ---------------------------------------------------------------- K1: unpack
@@ -159,18 +306,14 @@ def count_dtype(read_len: int, k: int, step: int) -> torch.dtype:
     return torch.uint8 if -(-(read_len - k + 1) // step) <= 0xFF else torch.int32
 
 
-def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_words,
-                    num_hashes, fields_per_word, num_classes):
-    if codes.dtype != torch.uint8 or codes.dim() != 2:
-        raise ValueError("codes must be a 2-D uint8 tensor")
+def _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
+                          num_hashes, fields_per_word, num_classes):
     if table.dtype != torch.int32 or table.dim() != 2:
         raise ValueError("table must be a 2-D int32 tensor (uint32 bits)")
     if not 1 <= k <= 32:
         raise ValueError("k must be in [1, 32]")
-    if step < 1 or num_hashes < 1:
-        raise ValueError("step and num_hashes must be >= 1")
-    if codes.shape[1] < k:
-        raise ValueError("reads must be at least k bases long")
+    if num_hashes < 1:
+        raise ValueError("num_hashes must be >= 1")
     if rows_per_block & (rows_per_block - 1) or fields_per_word & (fields_per_word - 1):
         raise ValueError("rows_per_block and fields_per_word must be powers of two")
     if tuple(table.shape) != (num_blocks, class_words * rows_per_block):
@@ -182,6 +325,18 @@ def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_wor
         raise ValueError("field packing needs all classes in one word")
     if not 0 < num_classes <= 32 * class_words:
         raise ValueError("num_classes does not fit class_words")
+
+
+def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_words,
+                    num_hashes, fields_per_word, num_classes):
+    if codes.dtype != torch.uint8 or codes.dim() != 2:
+        raise ValueError("codes must be a 2-D uint8 tensor")
+    if step < 1:
+        raise ValueError("step must be >= 1")
+    _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
+                          num_hashes, fields_per_word, num_classes)
+    if codes.shape[1] < k:
+        raise ValueError("reads must be at least k bases long")
     if _counter_rows(num_classes) < 3:
         raise ValueError(
             f"{num_classes} classes exceed reads_query's shared counters "
@@ -191,8 +346,70 @@ def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_wor
 
 
 def _counter_rows(num_classes: int) -> int:
-    """Reads whose (read, class) counters fit K2's shared-memory budget."""
+    """Reads (K2) or records (K3) whose per-class counters fit the
+    shared-memory budget of one thread block."""
     return _SHARED_COUNTER_BYTES // (4 * num_classes)
+
+
+def _canonical_windows_plain(codes: torch.Tensor, k: int, nk: int):
+    """Canonical (hi, lo) words and the invalid flag of windows 0..nk-1
+    of each row of int64 ``codes`` [m, >= nk + k - 1]: ([m, nk],) * 3."""
+    lo_bases = min(k, 16)
+    hi_bases = k - lo_bases
+    m = codes.shape[0]
+    f_hi = torch.zeros((m, nk), dtype=torch.int64, device=codes.device)
+    f_lo = torch.zeros_like(f_hi)
+    r_hi = torch.zeros_like(f_hi)
+    r_lo = torch.zeros_like(f_hi)
+    bad = torch.zeros((m, nk), dtype=torch.bool, device=codes.device)
+    for j in range(k):
+        c = codes[:, j : j + nk]
+        bad |= c > 3
+        cm = torch.where(c > 3, 0, c)
+        if j < hi_bases:
+            f_hi = (f_hi << 2) | cm
+        else:
+            f_lo = (f_lo << 2) | cm
+    # base t of the reverse complement is comp(code[k-1-t])
+    for t in range(k):
+        c = codes[:, k - 1 - t : k - 1 - t + nk]
+        cm = torch.where(c > 3, 0, 3 - c)
+        if t < hi_bases:
+            r_hi = (r_hi << 2) | cm
+        else:
+            r_lo = (r_lo << 2) | cm
+    fwd_le = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
+    return torch.where(fwd_le, f_hi, r_hi), torch.where(fwd_le, f_lo, r_lo), bad
+
+
+def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
+                     num_hashes, fields_per_word):
+    """The AND of each k-mer's probe words: one int64 word per class word
+    (masked to the field width when P > 1)."""
+    rpb = rows_per_block
+    P = fields_per_word
+    fb = 32 // P
+    a, b, c = kmer_hash_words_torch(hi, lo)
+    base = (a % num_blocks) * (class_words * rpb)
+    if P == 1:
+        words = []
+        for w in range(class_words):
+            acc = torch.full_like(a, MASK32)
+            for i in range(num_hashes):
+                row = ((b + i * c) & MASK32) & (rpb - 1)
+                acc &= flat[base + w * rpb + row]
+            words.append(acc)
+        return words
+    g = (b >> 24) & (P - 1)
+    acc = torch.full_like(a, MASK32)
+    for s in range(min(num_hashes, P)):
+        slot = torch.full_like(a, MASK32)
+        for i in range(s, num_hashes, P):
+            slot &= flat[base + (((b + i * c) & MASK32) & (rpb - 1))]
+        rot = ((g + s) & (P - 1)) * fb
+        slot = ((slot >> rot) | (slot << ((32 - rot) & 31))) & MASK32
+        acc &= slot
+    return [acc & ((1 << fb) - 1)]
 
 
 def reads_query_plain(
@@ -216,64 +433,19 @@ def reads_query_plain(
     """
     n, read_len = codes.shape
     nk = read_len - k + 1
-    lo_bases = min(k, 16)
-    hi_bases = k - lo_bases
-    rpb = rows_per_block
-    P = fields_per_word
-    fb = 32 // P
     flat = table.reshape(-1).long() & MASK32
     out = torch.zeros((n, num_classes), dtype=torch.int32, device=codes.device)
     for r0 in range(0, n, _PLAIN_READS):
         r = codes[r0 : r0 + _PLAIN_READS].long()
         m = r.shape[0]
-        f_hi = torch.zeros((m, nk), dtype=torch.int64, device=codes.device)
-        f_lo = torch.zeros_like(f_hi)
-        r_hi = torch.zeros_like(f_hi)
-        r_lo = torch.zeros_like(f_hi)
-        bad = torch.zeros((m, nk), dtype=torch.bool, device=codes.device)
-        for j in range(k):
-            c = r[:, j : j + nk]
-            bad |= c > 3
-            cm = torch.where(c > 3, 0, c)
-            if j < hi_bases:
-                f_hi = (f_hi << 2) | cm
-            else:
-                f_lo = (f_lo << 2) | cm
-        # base t of the reverse complement is comp(code[k-1-t])
-        for t in range(k):
-            c = r[:, k - 1 - t : k - 1 - t + nk]
-            cm = torch.where(c > 3, 0, 3 - c)
-            if t < hi_bases:
-                r_hi = (r_hi << 2) | cm
-            else:
-                r_lo = (r_lo << 2) | cm
-        fwd_le = (f_hi < r_hi) | ((f_hi == r_hi) & (f_lo <= r_lo))
-        hi = torch.where(fwd_le, f_hi, r_hi)[:, ::step].reshape(-1)
-        lo = torch.where(fwd_le, f_lo, r_lo)[:, ::step].reshape(-1)
+        hi, lo, bad = _canonical_windows_plain(r, k, nk)
         ok = ~bad[:, ::step]
         nkk = ok.shape[1]
-
-        a, b, c = kmer_hash_words_torch(hi, lo)
-        base = (a % num_blocks) * (class_words * rpb)
-        if P == 1:
-            words = []
-            for w in range(class_words):
-                acc = torch.full_like(a, MASK32)
-                for i in range(num_hashes):
-                    row = ((b + i * c) & MASK32) & (rpb - 1)
-                    acc &= flat[base + w * rpb + row]
-                words.append(acc)
-        else:
-            g = (b >> 24) & (P - 1)
-            acc = torch.full_like(a, MASK32)
-            for s in range(min(num_hashes, P)):
-                slot = torch.full_like(a, MASK32)
-                for i in range(s, num_hashes, P):
-                    slot &= flat[base + (((b + i * c) & MASK32) & (rpb - 1))]
-                rot = ((g + s) & (P - 1)) * fb
-                slot = ((slot >> rot) | (slot << ((32 - rot) & 31))) & MASK32
-                acc &= slot
-            words = [acc & ((1 << fb) - 1)]
+        words = _and_words_plain(
+            hi[:, ::step].reshape(-1), lo[:, ::step].reshape(-1), flat,
+            num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
+            num_hashes=num_hashes, fields_per_word=fields_per_word,
+        )
         counts = out[r0 : r0 + m]
         for w, word in enumerate(words):
             word = torch.where(ok.reshape(-1), word, 0).reshape(m, nkk)
@@ -339,19 +511,192 @@ def reads_query(
 reads_query.launches = 0
 
 
+# ---------------------------------------------------------------- K4: records wire
+
+
+def records_wire_plain(offsets: torch.Tensor, n_pos: int, *, k: int, step: int):
+    """Plain PyTorch version of :func:`records_wire`."""
+    max_records = offsets.numel() - 1
+    pos = torch.arange(n_pos, dtype=torch.int32, device=offsets.device)
+    rec = torch.searchsorted(offsets[1:].contiguous(), pos, right=True, out_int32=True)
+    rec = rec.clamp_(max=max_records - 1)
+    start = offsets[rec.long()]
+    rel = pos - start
+    nk_r = offsets[rec.long() + 1] - start - (k - 1)
+    return rec, (rel < nk_r) & (rel % step == 0)
+
+
+def records_wire(offsets: torch.Tensor, n_pos: int, *, k: int, step: int):
+    """Record id and window validity of every position of a flat batch.
+
+    ``offsets`` is int32 [max_records + 1] (record r spans
+    ``[offsets[r], offsets[r+1])``; the tail repeats the real base
+    count).  Returns ``(rec_ids int32 [n_pos], valid bool [n_pos])``:
+    ``rec_ids`` is ``searchsorted(offsets[1:], pos, side="right")``
+    clamped to ``max_records - 1``, and a position is valid when a
+    whole window of its record starts there on the record's own
+    sparse-sampling phase.
+    """
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.numel() < 2:
+        raise ValueError("offsets must be a 1-D int32 tensor of at least 2 entries")
+    if not 1 <= k <= 32 or step < 1 or n_pos < 0:
+        raise ValueError("need 1 <= k <= 32, step >= 1 and n_pos >= 0")
+    if offsets.device.type == "cpu":
+        return records_wire_plain(offsets, n_pos, k=k, step=step)
+    offsets = offsets.contiguous()
+    rec_ids = torch.empty(n_pos, dtype=torch.int32, device=offsets.device)
+    valid = torch.empty(n_pos, dtype=torch.bool, device=offsets.device)
+    fn = _kernels.entry("records_wire")
+    stream = torch.cuda.current_stream(offsets.device).cuda_stream
+    rc = fn(
+        offsets.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), n_pos,
+        offsets.numel() - 1, k, step, stream,
+    )
+    _kernels.check("records_wire", rc)
+    records_wire.launches += 1
+    return rec_ids, valid
+
+
+records_wire.launches = 0
+
+
+# ---------------------------------------------------------------- K3: records query
+
+
+def records_query_plain(
+    codes: torch.Tensor,
+    rec_ids: torch.Tensor,
+    valid: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    max_records: int,
+    k: int,
+    num_blocks: int,
+    rows_per_block: int,
+    class_words: int,
+    num_hashes: int,
+    fields_per_word: int,
+    num_classes: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`records_query`, a pass of at most
+    ``_PLAIN_POSITIONS`` positions at a time."""
+    n_pos = rec_ids.numel()
+    flat = table.reshape(-1).long() & MASK32
+    out = torch.zeros((max_records, num_classes), dtype=torch.int32, device=codes.device)
+    probe = dict(
+        num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
+        num_hashes=num_hashes, fields_per_word=fields_per_word,
+    )
+    for p0 in range(0, n_pos, _PLAIN_POSITIONS):
+        p1 = min(n_pos, p0 + _PLAIN_POSITIONS)
+        rec = rec_ids[p0:p1].long()
+        hi, lo, bad = _canonical_windows_plain(codes[None, p0 : p1 + k - 1].long(), k, p1 - p0)
+        keep = valid[p0:p1].bool() & (rec >= 0) & (rec < max_records) & ~bad[0]
+        pick = keep.nonzero().squeeze(1)
+        if not pick.numel():
+            continue
+        words = _and_words_plain(hi[0, pick], lo[0, pick], flat, **probe)
+        rec = rec[pick]
+        for w, word in enumerate(words):
+            nb = min(32, num_classes - 32 * w)
+            bits = (word[:, None] >> torch.arange(nb, device=word.device)) & 1
+            out[:, 32 * w : 32 * w + nb].index_add_(0, rec, bits.int())
+    return out
+
+
+def records_query(
+    codes: torch.Tensor,
+    rec_ids: torch.Tensor,
+    valid: torch.Tensor,
+    table: torch.Tensor,
+    *,
+    max_records: int,
+    k: int,
+    num_blocks: int,
+    rows_per_block: int,
+    class_words: int,
+    num_hashes: int,
+    fields_per_word: int,
+    num_classes: int,
+    min_record_len: int | None = None,
+) -> torch.Tensor:
+    """Per-record, per-class hit counts of a flat batch: int32 [max_records, C].
+
+    ``codes`` is uint8 [n_pos + k - 1] (>3 = invalid base), ``rec_ids``
+    int32 [n_pos], ``valid`` bool or uint8 [n_pos], ``table`` the
+    index's device layout as int32.  The window starting at each valid
+    position counts for its record unless it holds an invalid base; a
+    record id outside ``[0, max_records)`` counts nothing.
+    ``min_record_len``, the batch's shortest record, sizes the kernel's
+    thread blocks so that most count in shared memory; the counts do
+    not depend on it.
+    """
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise ValueError("codes must be a 1-D uint8 tensor")
+    if rec_ids.dtype != torch.int32 or rec_ids.dim() != 1:
+        raise ValueError("rec_ids must be a 1-D int32 tensor")
+    if valid.dtype not in (torch.bool, torch.uint8) or tuple(valid.shape) != tuple(rec_ids.shape):
+        raise ValueError("valid must be a bool or uint8 tensor shaped like rec_ids")
+    n_pos = rec_ids.numel()
+    if codes.numel() < n_pos + k - 1:
+        raise ValueError(f"codes must hold n_pos + k - 1 = {n_pos + k - 1} bases")
+    if max_records < 1:
+        raise ValueError("max_records must be >= 1")
+    geom = dict(
+        k=k, num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
+        num_hashes=num_hashes, fields_per_word=fields_per_word, num_classes=num_classes,
+    )
+    _check_table_geometry(table, **geom)
+    if codes.device.type == "cpu":
+        return records_query_plain(codes, rec_ids, valid, table, max_records=max_records, **geom)
+    for t in (rec_ids, valid, table):
+        if t.device != codes.device:
+            raise ValueError("codes, rec_ids, valid and table must share one device")
+    codes, rec_ids, table = codes.contiguous(), rec_ids.contiguous(), table.contiguous()
+    valid = valid.contiguous().view(torch.uint8)
+    # a block's positions span at most (ppb-1)//shortest + 2 records,
+    # whose counters should fit its shared-memory rows; a block whose
+    # span does not fit counts in global memory instead
+    shortest = max(k + 1, min_record_len or 0)
+    rows = min(_counter_rows(num_classes), max_records)
+    ppb = _WINDOWS_PER_BLOCK
+    if rows >= 3:
+        ppb = min(ppb, (rows - 2) * shortest + 1)
+    out = torch.zeros((max_records, num_classes), dtype=torch.int32, device=codes.device)
+    fn = _kernels.entry("records_query")
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = fn(
+        codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), table.data_ptr(),
+        out.data_ptr(), n_pos, k, num_blocks, rows_per_block, class_words, num_hashes,
+        fields_per_word, num_classes, max_records, ppb, rows, stream,
+    )
+    _kernels.check("records_query", rc)
+    records_query.launches += 1
+    return out
+
+
+records_query.launches = 0
+
+
 # ---------------------------------------------------------------- engine
 
 
 class DeviceQueryEngine:
-    """Holds an index table resident on the device and queries reads."""
+    """Holds an index table resident on the device and queries reads and
+    record batches."""
 
-    def __init__(self, index: BlockedBitSlicedIndex, device=None):
+    def __init__(self, index: BlockedBitSlicedIndex, device=None, chunk: int = DEFAULT_CHUNK):
         self.index = index
         self.device = resolve_device(device)
+        # the JAX engine's chunk rule (it shrinks the chunk for wide class
+        # counts), so both pad a batch alike
+        cw = index.class_words
+        self.chunk = min(chunk, max(8192, _next_pow2((1 << 19) // cw + 1) // 2))
         self.table = torch.from_numpy(index.device_table().view(np.int32)).to(self.device)
 
     def geometry(self) -> dict:
-        """The index geometry as :func:`reads_query` takes it."""
+        """The index geometry as :func:`reads_query` and
+        :func:`records_query` take it."""
         idx = self.index
         return dict(
             k=idx.k,
@@ -404,3 +749,70 @@ class DeviceQueryEngine:
         if not block:
             return out
         return out[:n].cpu().numpy().astype(np.int64)
+
+    def upload_records_wire(self, batch: PreparedBatch, max_records: int):
+        """The compact wire of :meth:`count_hits` on the device
+        (:func:`packed_wire_for_batch`), cached on the batch."""
+        key = (max_records, str(self.device))
+        dev = batch._device_wire.get(key)
+        if dev is None:
+            wire = packed_wire_for_batch(batch, max_records)
+            dev = tuple(torch.from_numpy(a).to(self.device) for a in wire)
+            batch._device_wire[key] = dev
+        return dev
+
+    def count_hits(self, batch: PreparedBatch, block: bool = True, wire: str = "auto"):
+        """Hit counts of a prepared batch: int64 [batch.num_records, num_classes].
+
+        With ``block=False`` the padded int32 [max_records, C] device
+        tensor is returned without synchronizing (``max_records`` is the
+        record count rounded up to a power of two, at least 8).
+        ``wire="packed"`` ships 2-bit codes, a patch list and the record
+        offsets, and derives record ids and validity on the device;
+        ``wire="raw"`` ships codes, record ids and validity as they are.
+        ``"auto"`` picks packed when the batch has offsets
+        (:func:`prepare_batch`) and raw otherwise
+        (:func:`prepare_fixed_batch`).
+        """
+        idx = self.index
+        if wire not in ("auto", "packed", "raw"):
+            raise ValueError(
+                f"unknown wire format {wire!r}: expected 'auto', 'packed' or 'raw'"
+            )
+        if wire == "packed" and batch.offsets is None:
+            raise ValueError(
+                "wire='packed' requires a batch with record offsets "
+                "(prepare_batch); this batch has none"
+            )
+        if wire == "auto":
+            wire = "packed" if batch.offsets is not None else "raw"
+        if batch.num_records == 0:
+            return np.zeros((0, idx.num_classes), dtype=np.int64)
+        max_records = _next_pow2(max(8, batch.num_records))
+        if wire == "packed":
+            packed, bad_pos, offsets = self.upload_records_wire(batch, max_records)
+            n_tot = len(batch.codes)
+            codes = unpack_2bit(
+                packed.view(1, -1), torch.zeros_like(bad_pos), bad_pos, n_tot
+            ).view(-1)
+            rec_ids, valid = records_wire(
+                offsets, batch.num_positions, k=idx.k, step=batch.step
+            )
+        else:
+            codes, rec_ids, valid = (
+                torch.from_numpy(a).to(self.device)
+                for a in (batch.codes, batch.rec_ids, batch.valid)
+            )
+        shortest = None if batch.offsets is None else int(np.diff(batch.offsets).min())
+        out = records_query(
+            codes, rec_ids, valid, self.table, max_records=max_records,
+            min_record_len=shortest, **self.geometry(),
+        )
+        if not block:
+            return out
+        return out[: batch.num_records].cpu().numpy().astype(np.int64)
+
+    def count_hits_records(self, records, step: int = 1, block: bool = True):
+        """``(name, codes)`` records -> int64 [n_records, C] hits."""
+        batch = prepare_batch(records, self.index.k, step=step, chunk=self.chunk)
+        return self.count_hits(batch, block=block)
