@@ -7,8 +7,8 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels and the native host library from the
 sources in the checkout, checks each kernel against its plain PyTorch
-version on the card, then drives the port's two paths end to end at
-full width:
+version on the card, then drives the port's paths end to end at full
+width:
 
 - reads: simulated FASTQ runs through ``xspect2_tpu_torch.classify``,
   an 8-class species model over 4 Mbp genomes and a 1-class genus model
@@ -16,7 +16,13 @@ full width:
 - records: a 40-class x 4 Mbp SVM species model trained through
   ``ProbabilisticFilterSVMModel.fit``, then ``classify_species`` on 20
   held-out draft assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4,
-  and ``classify_genus`` on assemblies of the genus genome (K1, K4, K3).
+  and ``classify_genus`` on assemblies of the genus genome (K1, K4, K3);
+- MLST: a 7-locus x 1,000-allele x 450 bp scheme (k=31, fpr 0.001, one
+  hash) trained through ``ProbabilisticFilterMlstSchemeModel.fit``, then
+  ``classify_mlst`` on a FASTA of 4 Mbp genomes with one known allele
+  per locus and a few short records (K1, K4, K5, K6);
+- xxh3 genus: the compat genus model fitted on the 32 Mbp genus genome,
+  then ``classify_genus`` on assemblies drawn from it (K7).
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -56,12 +62,24 @@ GENOME_LEN = 4_000_000
 SVM_LEN = 1_000_000  # SVM training assemblies are cut to this stretch
 HELD_OUT = 20
 GENUS_ASSEMBLIES = 4
-# kernel name -> (source, the TPU program it replaces)
+# MLST: the scheme of tools/bench_mlst.py; depth is cut in the genome count
+MLST_K = 31
+MLST_LOCI = 7
+MLST_ALLELES = 1000
+ALLELE_LEN = 450
+MLST_GENOMES = 8
+MLST_SHORT = 3
+# xxh3 genus: assemblies classified through the compat model
+XXH3_ASSEMBLIES = 2
+# kernel wrapper -> (source, the TPU program it replaces)
 KERNELS = {
     "unpack_2bit": ("xspect2_tpu_torch/csrc/unpack_2bit.cu", "xspect2_tpu/ops/query.py:751"),
     "reads_query": ("xspect2_tpu_torch/csrc/reads_query.cu", "xspect2_tpu/ops/query.py:624"),
     "records_wire": ("xspect2_tpu_torch/csrc/records_wire.cu", "xspect2_tpu/ops/query.py:301"),
     "records_query": ("xspect2_tpu_torch/csrc/records_query.cu", "xspect2_tpu/ops/query.py:470"),
+    "multi_records_query": ("xspect2_tpu_torch/csrc/multi_records_query.cu", "xspect2_tpu/ops/query.py:854"),
+    "reduce_record_counts": ("xspect2_tpu_torch/csrc/segment_reduce.cu", "xspect2_tpu/ops/query.py:909"),
+    "bloom_count": ("xspect2_tpu_torch/csrc/bloom_count.cu", "xspect2_tpu/core/compat.py:205"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
 # random HBM read, and the 32-bit non-tensor rate, above which the
@@ -84,9 +102,11 @@ def require(cond, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` calls, after one warm-up."""
-    fn()
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` calls, after one
+    warm-up unless ``warm`` is False."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -116,17 +136,25 @@ def card_line(card: str) -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def reset_launches() -> None:
-    from xspect2_tpu_torch.ops import query
+def wrapper(name: str):
+    """The kernel wrapper ``name``, which carries the launch count."""
+    from xspect2_tpu_torch.ops import bloom, query
 
+    return getattr(bloom if name == "bloom_count" else query, name)
+
+
+def reset_launches() -> None:
     for name in KERNELS:
-        getattr(query, name).launches = 0
+        wrapper(name).launches = 0
 
 
 def read_launches() -> dict:
-    from xspect2_tpu_torch.ops import query
+    return {name: wrapper(name).launches for name in KERNELS}
 
-    return {name: getattr(query, name).launches for name in KERNELS}
+
+def add_launches(total: dict, more: dict) -> None:
+    for name, v in more.items():
+        total[name] += v
 
 
 def probe_sectors(idx, hi, lo, seen) -> int:
@@ -232,6 +260,78 @@ def check_kernels(rng, errors):
         )
     require(errors["unpack_2bit"] == 0, "unpack_2bit disagrees with its plain version")
     require(errors["reads_query"] == 0, "reads_query disagrees with its plain version")
+
+
+
+def check_multi_kernels(rng, errors):
+    """K5, K6 and K7 equal their plain versions on the card, exactly: K5
+    over tables of three geometries in one launch (field-packed C=4, two
+    class words, 32 class words), also against K3 per table, on the
+    shared-counter and the global-atomic path; K6 in its three modes with
+    thresholds 50 and -1 and segment ids outside the range; K7 against
+    the host count of a filter with 7 probes."""
+    from xspect2_tpu_torch.core import compat, dna
+    from xspect2_tpu_torch.ops import bloom, query
+
+    dev = torch.device("cuda")
+    indices = [random_index(c, h, rng, num_kmers=20_000) for c, h in ((4, 2), (40, 7), (1000, 1))]
+    require([(i.fields_per_word > 1, i.class_words) for i in indices] == [(True, 1), (False, 2), (False, 32)],
+            "the multi-index geometries are not field-packed, cw=2 and cw=32")
+    engines = [query.DeviceQueryEngine(idx, device=dev) for idx in indices]
+    tables = [e.table for e in engines]
+    geoms = [e.geometry() for e in engines]
+    genome = rng.integers(0, 4, size=300_000, dtype=np.uint8)
+    # (records, length range, record-length hint): one record; a few;
+    # many short ones with a hint that forces the global-atomic path
+    for n_rec, lo, hi, hint in ((1, 450, 451, None), (6, 32, 5000, 32), (700, 22, 300, 22), (700, 22, 60, 10**6)):
+        records = []
+        for i in range(n_rec):
+            n = int(rng.integers(lo, hi))
+            at = int(rng.integers(0, len(genome) - n))
+            c = genome[at : at + n].copy()
+            if i % 5 == 0:
+                c[rng.integers(0, n, 2)] = 255
+            records.append((f"r{i}", c))
+        batch = query.prepare_batch(records, K, chunk=engines[0].chunk)
+        max_records = query._next_pow2(max(8, batch.num_records))
+        inputs = [torch.from_numpy(a).to(dev) for a in (batch.codes, batch.rec_ids, batch.valid)]
+        got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
+        want = query.multi_records_query_plain(tables, geoms, *inputs, max_records=max_records)
+        err5 = 0
+        for e, g, w in zip(engines, got, want):
+            single = query.records_query(*inputs, e.table, max_records=max_records, **e.geometry())
+            err5 = max(err5, int((g - w).abs().max()), int((g - single).abs().max()))
+        errors["multi_records_query"] = max(errors["multi_records_query"], err5)
+        seg = np.sort(rng.integers(0, 5, size=max_records)).astype(np.int32)
+        seg[rng.integers(0, max_records, 2)] = [-1, 9]  # outside [0, 5): add nothing
+        seg_ids = torch.from_numpy(seg).to(dev)
+        err6 = 0
+        for mode in query.REDUCE_MODES:
+            for threshold in (50, -1):
+                red = query.reduce_record_counts(got, mode, threshold, seg_ids, 5)
+                ref = query.reduce_record_counts_plain(want, mode, threshold, seg_ids, 5)
+                err6 = max(err6, *(int((a - b).abs().max()) for a, b in zip(red, ref)))
+        errors["reduce_record_counts"] = max(errors["reduce_record_counts"], err6)
+        log(f"  multi-index kernels vs plain: {n_rec} records of {lo}-{hi} bp, hint {hint}, "
+            f"max_records {max_records}: max |err| K5 {err5}, K6 {err6}, hits {[int(g.sum()) for g in got]}")
+    require(errors["multi_records_query"] == 0, "multi_records_query disagrees with its plain version or with records_query")
+    require(errors["reduce_record_counts"] == 0, "reduce_record_counts disagrees with its plain version")
+
+    filt = compat.XXH3BloomFilter.for_items(len(genome) - K + 1, 0.01, K, device=dev)
+    require(filt.num_hashes == 7, "the compat filter at fpr 0.01 does not take 7 probes")
+    filt.insert_packed(*dna.canonical_kmers(genome, K))
+    for n in (1, 5_000, 200_000):
+        probe = np.concatenate([genome[: n // 2 + K], rng.integers(0, 4, size=n, dtype=np.uint8)])[: n + K - 1]
+        probe[rng.integers(0, len(probe), 3)] = 255
+        hi, lo, valid = dna.canonical_kmers(probe, K)
+        host = filt.count_hits_host(hi, lo, valid)
+        got = filt.count_hits_device(hi, lo, valid)
+        words = torch.from_numpy(filt.words.view(np.int32)).to(dev)
+        pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(dev)
+        plain = int(bloom.bloom_count_plain(words, pos, torch.from_numpy(valid).to(dev)))
+        errors["bloom_count"] = max(errors["bloom_count"], abs(got - host), abs(got - plain))
+        log(f"  bloom_count vs host and plain: {n} k-mers, h=7: kernel {got}, host {host}, plain {plain}")
+    require(errors["bloom_count"] == 0, "bloom_count disagrees with the host count or its plain version")
 
 
 # ---------------------------------------------------------------- phases 3-4
@@ -605,10 +705,10 @@ def check_records_kernels(rng, errors):
     require(errors["records_query"] == 0, "records_query disagrees with its plain version")
 
 
-def host_record_counts(idx, codes, step):
+def host_record_counts(idx, codes, step, k=K):
     from xspect2_tpu_torch.core import dna
 
-    return idx.count_hits_host(*dna.canonical_kmers(codes, K, step=step))
+    return idx.count_hits_host(*dna.canonical_kmers(codes, k, step=step))
 
 
 def check_assembly_result(res, contigs, idx, step, rng, label, exact_hits=False):
@@ -861,7 +961,418 @@ def run_genus_assemblies(genus_genome, genus_idx, rng, card):
     log(f"  end-to-end [{card}] genus assemblies: {GENUS_ASSEMBLIES} assemblies ({total_bases} bases) "
         f"in {e2e:.2f} s, {GENUS_ASSEMBLIES / e2e:.2f} assemblies/s, {total_bases / e2e / 1e6:.2f} M bases/s; "
         f"every N-free window of every contig hit, sampled contigs equal the host reference")
-    return launches
+    return launches, assemblies
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def seq_str(codes: np.ndarray) -> str:
+    return ASCII[np.minimum(codes, 4)].tobytes().decode("ascii")
+
+
+def host_mlst_totals(model, seq: str, codes: np.ndarray, rng):
+    """The per-locus thresholded totals of one long genome on the host, in
+    numpy: per-piece counts of every allele (the probe words of each
+    k-mer ANDed, their set bits binned by piece and class), counts > 50
+    kept and summed over the pieces.  Three sampled pieces per locus are
+    held against ``count_hits_host``."""
+    from xspect2_tpu_torch.core import dna, hashing
+    from xspect2_tpu_torch.models.mlst_model import CHUNK_SCORE_THRESHOLD
+
+    hi, lo, valid = dna.canonical_kmers(codes, MLST_K)
+    starts = np.arange(len(hi))
+    totals = []
+    for li, idx in enumerate(model.indices):
+        require(idx.fields_per_word == 1, "the MLST index is field-packed")
+        pieces = model.sequence_splitter(seq, model.avg_locus_bp_size[li])
+        stride = len(pieces[0]) - MLST_K + 1
+        piece_of = np.minimum(starts // stride, len(pieces) - 1)
+        num_classes = idx.num_classes
+        table = idx.table.reshape(-1, idx.class_words)
+        counts = np.zeros(len(pieces) * num_classes, dtype=np.int64)
+        for s0 in range(0, len(hi), 1 << 19):
+            sel = valid[s0 : s0 + (1 << 19)]
+            block, words, _ = hashing.block_words_fieldbase(
+                hi[s0 : s0 + (1 << 19)][sel], lo[s0 : s0 + (1 << 19)][sel],
+                idx.num_blocks, idx.rows_per_block, idx.num_hashes, 1,
+            )
+            rows = block.astype(np.int64)[:, None] * idx.rows_per_block + words.astype(np.int64)
+            anded = table[rows[:, 0]]
+            for j in range(1, idx.num_hashes):
+                anded = anded & table[rows[:, j]]
+            km, wd = np.nonzero(anded)
+            vals = anded[km, wd]
+            pc = piece_of[s0 : s0 + (1 << 19)][sel][km]
+            for bit in range(32):
+                on = ((vals >> np.uint32(bit)) & np.uint32(1)).astype(bool)
+                cls = wd[on] * 32 + bit
+                ok = cls < num_classes
+                counts += np.bincount(pc[on][ok] * num_classes + cls[ok], minlength=len(counts))
+        per_piece = counts.reshape(len(pieces), num_classes)
+        for i in rng.choice(len(pieces), 3, replace=False):
+            want = idx.count_hits_host(*dna.canonical_kmers(dna.encode(pieces[i]), MLST_K))
+            require(np.array_equal(per_piece[i], want), "the host MLST reference differs from count_hits_host")
+        totals.append(np.where(per_piece > CHUNK_SCORE_THRESHOLD, per_piece, 0).sum(axis=0))
+    return totals
+
+
+def mlst_group(model, seqs, card, errors):
+    """One group of long genomes step by step on the host clock (each
+    step ends in a sync), then K5 and K6 at the group's shape: time,
+    bound, plain time, and for K6 the PyTorch calls that compute it."""
+    from xspect2_tpu_torch.core import dna
+    from xspect2_tpu_torch.models.mlst_model import CHUNK_SCORE_THRESHOLD
+    from xspect2_tpu_torch.models.result import MlstResult
+    from xspect2_tpu_torch.ops import query
+
+    engines = model.engines
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    records, seg = [], []
+    for b, s in enumerate(seqs):
+        for i, piece in enumerate(model.sequence_splitter(s, model.avg_locus_bp_size[0])):
+            records.append((f"g{b}p{i}", dna.encode(piece)))
+            seg.append(b)
+    batch = query.prepare_batch(records, MLST_K, chunk=engines[0].chunk)
+    t1 = time.time()
+    max_records = query._next_pow2(max(8, batch.num_records))
+    wire = query.packed_wire_for_batch(batch, max_records)
+    seg_pad = np.zeros(max_records, dtype=np.int32)
+    seg_pad[: len(seg)] = seg
+    t2 = time.time()
+    packed, bad_pos, offsets, seg_ids = (torch.from_numpy(a).to(dev) for a in (*wire, seg_pad))
+    torch.cuda.synchronize()
+    t3 = time.time()
+    n_pos = batch.num_positions
+    tables = [e.table for e in engines]
+    geoms = [e.geometry() for e in engines]
+    hint = int(np.median(np.diff(batch.offsets)))
+    codes, rec_ids, valid = query.restore_records_wire(packed, bad_pos, offsets, n_pos, k=MLST_K, step=1)
+    counts = query.multi_records_query(tables, geoms, codes, rec_ids, valid, max_records=max_records, min_record_len=hint)
+    reduced = query.reduce_record_counts(counts, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs))
+    torch.cuda.synchronize()
+    t4 = time.time()
+    fetched = model._fetch_counts([(r, len(seqs)) for r in reduced])
+    t5 = time.time()
+    hits = {f"g{b}": model._assemble_hits(s, [c[b] for c in fetched]) for b, s in enumerate(seqs)}
+    t6 = time.time()
+    MlstResult(model.model_display_name, 1, hits, "group").save(WORK / "mlst-breakdown.json")
+    t7 = time.time()
+    steps = {
+        "split + encode + prepare_batch": t1 - t0, "pack": t2 - t1, "copy": t3 - t2,
+        "K1 + K4 + K5 + K6": t4 - t3, "fetch": t5 - t4, "assemble": t6 - t5, "result JSON": t7 - t6,
+    }
+    shape = (f"{len(seqs)} genomes, {batch.num_records} pieces, max_records {max_records}, "
+             f"{n_pos} positions, {len(tables)} tables x {geoms[0]['num_classes']} classes")
+    log(f"  breakdown [{card}] MLST, one group ({shape}), s: " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+    require(all(tuple(r.shape) == (len(seqs), g["num_classes"]) for r, g in zip(reduced, geoms)),
+            "the reduced counts are not [genomes, C] per locus")
+
+    # K5 and K6 against their plain versions at this shape
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain = query.multi_records_query_plain(tables, geoms, codes, rec_ids, valid, max_records=max_records)
+    end.record()
+    end.synchronize()
+    k5_plain = start.elapsed_time(end)
+    errors["multi_records_query"] = max(
+        errors["multi_records_query"], *(int((a - b).abs().max()) for a, b in zip(counts, plain)))
+    plain_red = query.reduce_record_counts_plain(plain, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs))
+    errors["reduce_record_counts"] = max(
+        errors["reduce_record_counts"], *(int((a - b).abs().max()) for a, b in zip(reduced, plain_red)))
+    require(errors["multi_records_query"] == 0 and errors["reduce_record_counts"] == 0,
+            "a multi-index kernel disagrees with its plain version at the MLST group's shape")
+    del plain, plain_red
+
+    def library():
+        # the PyTorch calls that compute K6's segment form: where, then index_add_
+        for h in counts:
+            hz = torch.where(h > CHUNK_SCORE_THRESHOLD, h, 0)
+            torch.zeros((len(seqs), h.shape[1]), dtype=torch.int32, device=dev).index_add_(0, seg_ids, hz)
+
+    k5_ms = cuda_ms(lambda: query.multi_records_query(
+        tables, geoms, codes, rec_ids, valid, max_records=max_records, min_record_len=hint), 5)
+    k6_ms = cuda_ms(lambda: query.reduce_record_counts(
+        counts, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs)), 20)
+    k6_plain = cuda_ms(lambda: query.reduce_record_counts_plain(
+        counts, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs)), 5)
+    k6_library = cuda_ms(library, 5)
+    k6_totals_library = cuda_ms(lambda: [torch.where(h > CHUNK_SCORE_THRESHOLD, h, 0).sum(0) for h in counts], 5)
+
+    # K5's bound: the inputs once, every table sector its counted windows
+    # touch once, the outputs once
+    seen = [table_sectors(e.index) for e in engines]
+    window_sectors = [0] * len(engines)
+    counted = 0
+    for p0 in range(0, n_pos, 1 << 21):
+        p1 = min(n_pos, p0 + (1 << 21))
+        hi, lo, bad = query._canonical_windows_plain(codes[None, p0 : p1 + MLST_K - 1].long(), MLST_K, p1 - p0)
+        keep = valid[p0:p1] & ~bad[0]
+        counted += int(keep.sum())
+        hi, lo = hi[0, keep], lo[0, keep]
+        for l, e in enumerate(engines):
+            window_sectors[l] += probe_sectors(e.index, hi, lo, seen[l])
+    run_sectors = [int(x.sum()) for x in seen]
+    del seen, hi, lo, bad, keep
+    probes = [e.index.num_hashes * (e.index.class_words if e.index.fields_per_word == 1 else 1) for e in engines]
+    out_bytes = sum(c.numel() * 4 for c in counts)
+    k5_bytes = len(batch.codes) + 5 * n_pos + sum(run_sectors) * SECTOR_BYTES + out_bytes
+    k5_reuse_free_ms = (k5_bytes + (sum(window_sectors) - sum(run_sectors)) * SECTOR_BYTES) / HBM_BYTES_PER_S * 1e3
+    # estimated per table: ~6 per base to pack and canonicalize, ~60 to hash, 3 per probe word
+    k5_ops = counted * sum(6 * MLST_K + 60 + 3 * pr for pr in probes)
+    k5_bytes_ms = k5_bytes / HBM_BYTES_PER_S * 1e3
+    k5_ops_ms = k5_ops / INT_OPS_PER_S * 1e3
+    k6_bytes = out_bytes + 4 * max_records + sum(r.numel() * 4 for r in reduced)
+    k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  timing [{card}] multi_records_query ({shape}): {k5_ms:.4f} ms, bound {max(k5_bytes_ms, k5_ops_ms):.4f} ms "
+        f"(bytes {k5_bytes_ms:.4f} reading each of the {sum(run_sectors)} table sectors touched once, "
+        f"operations {k5_ops_ms:.4f}), plain {k5_plain:.4f} ms")
+    log(f"  multi_records_query: {counted} windows probed x {probes} words per table; {sum(window_sectors)} sectors "
+        f"summed over windows and tables ({sum(window_sectors) / counted / len(engines):.3f} per window and table), "
+        f"{sum(run_sectors)} distinct over the run; bytes with no reuse between windows {k5_reuse_free_ms:.4f} ms")
+    log(f"  timing [{card}] reduce_record_counts, segment totals ({shape}): {k6_ms:.4f} ms, bound {k6_bound:.4f} ms "
+        f"(bytes), plain {k6_plain:.4f} ms, PyTorch where + index_add_ per table {k6_library:.4f} ms "
+        f"(where + sum per table, the totals form: {k6_totals_library:.4f} ms)")
+    real = int(batch.offsets[-1])
+    log(f"  device-side [{card}]: {real / (k5_ms + k6_ms) * 1e3 / 1e6:.1f} M bases/s ({real} bases; K5 + K6)")
+    return {
+        "multi_records_query": dict(
+            ms=k5_ms, plain_ms=k5_plain, bound_ms=max(k5_bytes_ms, k5_ops_ms),
+            bound_by="bytes" if k5_bytes_ms >= k5_ops_ms else "operations", library_ms=None,
+        ),
+        "reduce_record_counts": dict(
+            ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound, bound_by="bytes", library_ms=k6_library,
+        ),
+    }
+
+
+def run_mlst(rng, card, errors):
+    """Train the 7 x 1,000-allele scheme, type 4 Mbp genomes through
+    ``classify_mlst`` and ``predict``, check every call and the counts."""
+    from xspect2_tpu_torch import classify, model_cache
+    from xspect2_tpu_torch.definitions import get_xspect_model_path
+    from xspect2_tpu_torch.io.fasta import SeqRecord
+    from xspect2_tpu_torch.model_management import get_mlst_model_path
+    from xspect2_tpu_torch.models.mlst_model import ProbabilisticFilterMlstSchemeModel
+
+    # no request may leave this machine: the ST-name lookup of every typed
+    # genome fails at its import of requests and yields the offline name
+    sys.modules["requests"] = None
+    os.environ.pop("XSPECT_MLST_BATCH_GENOMES", None)
+    base = WORK / "mlst"
+    loci = [f"Oxf_gene{i}" for i in range(MLST_LOCI)]
+    alleles = rng.integers(0, 4, size=(MLST_LOCI, MLST_ALLELES, ALLELE_LEN), dtype=np.uint8)
+    t0 = time.time()
+    for li, locus in enumerate(loci):
+        (base / "scheme" / locus).mkdir(parents=True)
+        for a in range(MLST_ALLELES):
+            (base / "scheme" / locus / f"Allele_ID_{a + 1}.fasta").write_text(
+                f">{locus}_{a + 1}\n{seq_str(alleles[li, a])}\n", encoding="utf-8")
+    log(f"  wrote {MLST_LOCI * MLST_ALLELES} allele files in {time.time() - t0:.1f} s")
+    model = ProbabilisticFilterMlstSchemeModel(
+        MLST_K, "Oxford", get_xspect_model_path(), "http://localhost:9/db/pubmlst_smoke_seqdef/schemes/1",
+        "smoke", device="cuda",
+    )
+    t0 = time.time()
+    model.fit(base / "scheme")
+    model.save()
+    idx = model.indices[0]
+    log(f"  fit [{card}]: {MLST_LOCI} loci x {MLST_ALLELES} alleles x {ALLELE_LEN} bp, k={MLST_K}, fpr {model.fpr}, "
+        f"h={idx.num_hashes}, cw={idx.class_words}, rows per block {idx.rows_per_block}, {idx.num_blocks} blocks, "
+        f"tables {sum(i.nbytes for i in model.indices)} bytes ({idx.nbytes / 1e6:.1f} MB each), {time.time() - t0:.2f} s")
+    require((idx.num_hashes, idx.class_words, idx.fields_per_word) == (1, 32, 1), "the MLST geometry is not h=1, cw=32, P=1")
+    del model
+
+    # 4 Mbp genomes with one known allele per locus and a 100-N gap, and
+    # short records (< 10 kb, one allele of locus 0) between them, so that
+    # a group is flushed when the split status changes
+    genomes, picks = [], []
+    for g in range(MLST_GENOMES):
+        codes = rng.integers(0, 4, size=GENOME_LEN, dtype=np.uint8)
+        codes[50_000:50_100] = 255
+        pick = rng.integers(0, MLST_ALLELES, size=MLST_LOCI)
+        for li in range(MLST_LOCI):
+            at = 100_000 + li * 500_000 + int(rng.integers(0, 400_000))
+            codes[at : at + ALLELE_LEN] = alleles[li, pick[li]]
+        genomes.append((f"genome{g}", codes))
+        picks.append(pick)
+    shorts, short_picks = [], []
+    for g in range(MLST_SHORT):
+        codes = rng.integers(0, 4, size=900, dtype=np.uint8)
+        a = int(rng.integers(0, MLST_ALLELES))
+        codes[200 : 200 + ALLELE_LEN] = alleles[0, a]
+        shorts.append((f"short{g}", codes))
+        short_picks.append(a)
+    ordered = genomes[:2] + shorts + genomes[2:]
+    groups_at_4 = 2 + -(-(MLST_GENOMES - 2) // 4)
+    fasta = base / "genomes.fasta"
+    total_bases = write_fasta(fasta, ordered)
+    out = base / "mlst.json"
+
+    launches = {name: 0 for name in KERNELS}
+    mlst_kernels = ("unpack_2bit", "records_wire", "multi_records_query", "reduce_record_counts")
+    reset_launches()
+    t0 = time.time()
+    classify.classify_mlst(fasta, "smoke", "Oxford", out, limit=False, device="cuda")
+    e2e = time.time() - t0
+    got = read_launches()
+    add_launches(launches, got)
+    log(f"  MLST: kernel launches of classify_mlst {got}")
+    require(all(got[name] == groups_at_4 for name in mlst_kernels),
+            f"classify_mlst did not launch each MLST kernel once per group ({groups_at_4} groups of genomes)")
+    require(all(v == 0 for name, v in got.items() if name not in mlst_kernels), "classify_mlst launched another path's kernel")
+    log(f"  end-to-end [{card}] classify_mlst (model load and table upload included): {len(ordered)} records "
+        f"({total_bases} bases) in {e2e:.2f} s")
+    res = json.loads(out.read_text(encoding="utf-8"))
+    require(res["Scheme"] == "Oxford" and res["Input_source"] == "genomes.fasta", "MLST: wrong result header")
+    require(list(res["Results"]) == [rid for rid, _ in ordered], "MLST: records differ")
+    for (rid, _), pick in zip(genomes, picks):
+        strain = res["Results"][rid][0]["Strain type"]
+        for li, locus in enumerate(loci):
+            require(next(iter(strain[locus])) == f"Allele_ID_{pick[li] + 1}", f"MLST: {rid} {locus} is not the embedded allele")
+        require(str(strain["ST_Name"]).startswith("N/A (PubMLST lookup failed:"), f"MLST: ST_Name of {rid}: {strain.get('ST_Name')!r}")
+    for (rid, _), a in zip(shorts, short_picks):
+        strain = res["Results"][rid][0]["Strain type"]
+        (name, hits), = strain[loci[0]].items()
+        require(name == f"Allele_ID_{a + 1}" and hits >= ALLELE_LEN - MLST_K + 1, f"MLST: {rid} misses its allele")
+        require(str(strain["ST_Name"]).startswith("N/A (PubMLST lookup failed:"), f"MLST: ST_Name of {rid}")
+    log(f"  MLST: every locus of all {MLST_GENOMES} genomes calls its embedded allele; the {MLST_SHORT} short records "
+        f"call theirs with at least {ALLELE_LEN - MLST_K + 1} hits; ST_Name is the offline string: "
+        f"{res['Results']['genome0'][0]['Strain type']['ST_Name']!r}")
+
+    model = model_cache.load_cached(
+        ProbabilisticFilterMlstSchemeModel, get_mlst_model_path("smoke", "Oxford"), torch.device("cuda"))
+    records = [SeqRecord(seq_str(codes), id=rid) for rid, codes in ordered]
+    by_batch = {}
+    for bg in (1, 4, 8):
+        reset_launches()
+        t0 = time.time()
+        by_batch[bg] = model.predict(iter(records), batch_genomes=bg).to_dict()["Results"]
+        e2e = time.time() - t0
+        got = read_launches()
+        add_launches(launches, got)
+        log(f"  end-to-end [{card}] MLST predict, batch_genomes {bg}: {len(records)} records ({MLST_GENOMES} genomes of "
+            f"{GENOME_LEN} bp) in {e2e:.2f} s, {MLST_GENOMES / e2e:.2f} genomes/s, {total_bases / e2e / 1e6:.2f} M bases/s; "
+            f"launches K5 {got['multi_records_query']}, K6 {got['reduce_record_counts']}")
+        require(got["multi_records_query"] == got["reduce_record_counts"] > 0, "MLST predict: K5 and K6 launches differ")
+    require(by_batch[1] == by_batch[4] == by_batch[8] == res["Results"], "MLST: results differ between batch sizes")
+    log("  MLST: batch_genomes 1, 4 and 8 and classify_mlst give identical Results")
+
+    # sampled counts against the host: genome 0 through the group and the
+    # single-genome reductions, every short record through both
+    seq0 = records[0].seq
+    t0 = time.time()
+    want = host_mlst_totals(model, seq0, genomes[0][1], rng)
+    host_s = time.time() - t0
+    grouped = model._fetch_counts(model._dispatch_loci_group([seq0, records[1].seq], 1))
+    single = model._fetch_counts(model._dispatch_loci(seq0, 1))
+    require(all(np.array_equal(g[0], w) and np.array_equal(s, w) for g, s, w in zip(grouped, single, want)),
+            "MLST: the reduced counts of genome0 differ from the host reference")
+    short_seqs = [r.seq for r in records[2 : 2 + MLST_SHORT]]
+    grouped = model._fetch_counts(model._dispatch_loci_group(short_seqs, 1))
+    for b, (_, codes) in enumerate(shorts):
+        single = model._fetch_counts(model._dispatch_loci(short_seqs[b], 1))
+        for li, index in enumerate(model.indices):
+            raw = host_record_counts(index, codes, 1, k=MLST_K)
+            require(np.array_equal(grouped[li][b], raw) and np.array_equal(single[li], raw),
+                    "MLST: the raw counts of a short record differ from the host reference")
+    log(f"  MLST: thresholded totals of genome0 ([C] and [B, C] reductions, all {MLST_LOCI} loci) and raw counts of the "
+        f"{MLST_SHORT} short records equal the host reference exactly (host reference {host_s:.1f} s)")
+
+    timings = mlst_group(model, [r.seq for r in records[2 + MLST_SHORT : 6 + MLST_SHORT]], card, errors)
+    model_cache.clear()
+    return launches, timings
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def run_xxh3_genus(genus_genome, assemblies, card, errors):
+    """Fit the xxh3 compat genus model on the genus genome, classify
+    assemblies drawn from it: every N-free window hits, counts equal the
+    host's; then K7 at the longest contig's shape."""
+    from xspect2_tpu_torch import classify
+    from xspect2_tpu_torch.core import dna
+    from xspect2_tpu_torch.definitions import get_xspect_model_path
+    from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
+    from xspect2_tpu_torch.ops import bloom
+
+    base = WORK / "genus_x"
+    in_dir = base / "in"
+    in_dir.mkdir(parents=True)
+    genome_bases = write_fasta(base / "smokex.fasta", [("smokex_genome", genus_genome[0])])
+    model = ProbabilisticSingleFilterModel(
+        K, "SmokeX", None, None, "Genus", get_xspect_model_path(), hash_family="xxh3", device="cuda")
+    t0 = time.time()
+    model.fit(base / "smokex.fasta", "SmokeX smokex")
+    model.save()
+    filt = model.compat_filter
+    log(f"  fit [{card}]: xxh3 compat filter over {genome_bases} bases (no cut), {filt.num_bits} bits "
+        f"({filt.words.nbytes / 1e6:.1f} MB), h={filt.num_hashes}, host hashing and insert {time.time() - t0:.1f} s")
+    require(filt.num_hashes == 7, "the xxh3 genus filter at fpr 0.01 does not take 7 probes")
+
+    assemblies = assemblies[:XXH3_ASSEMBLIES]
+    total_bases = sum(write_fasta(in_dir / f"gasm{a}.fasta", contigs) for a, contigs in enumerate(assemblies))
+    out = base / "res.json"
+    reset_launches()
+    t0 = time.time()
+    classify.classify_genus("SmokeX", in_dir, out, device="cuda")
+    e2e = time.time() - t0
+    launches = read_launches()
+    log(f"  xxh3 genus: kernel launches {launches}")
+    require(launches["bloom_count"] == sum(len(c) for c in assemblies), "xxh3 genus: bloom_count was not launched once per contig")
+    require(all(v == 0 for name, v in launches.items() if name != "bloom_count"), "xxh3 genus launched another path's kernel")
+    checked = 0
+    for a, contigs in enumerate(assemblies):
+        res = json.loads((base / f"res_{a + 1}.json").read_text(encoding="utf-8"))
+        require(list(res["hits"]) == [cid for cid, _ in contigs], f"xxh3 gasm{a}: contigs differ")
+        for cid, c in contigs:
+            bad = np.concatenate([[0], np.cumsum(c > 3)])
+            starts = np.arange(0, len(c) - K + 1)
+            clean = int(((bad[starts + K] - bad[starts]) == 0).sum())
+            require(res["hits"][cid] == {"smokex": clean}, f"xxh3 gasm{a}: {cid} missed a window")
+            require(res["num_kmers"][cid] == len(c) - K + 1, f"xxh3 gasm{a}: num_kmers of {cid}")
+        for i in np.argsort([len(c) for _, c in contigs])[:3]:
+            cid, c = contigs[i]
+            host = filt.count_hits_host(*dna.canonical_kmers(c, K))
+            require(res["hits"][cid]["smokex"] == host, f"xxh3 gasm{a}: {cid} differs from the host count")
+            checked += 1
+    log(f"  end-to-end [{card}] xxh3 genus assemblies: {len(assemblies)} assemblies ({total_bases} bases) in {e2e:.2f} s, "
+        f"{len(assemblies) / e2e:.2f} assemblies/s, {total_bases / e2e / 1e6:.2f} M bases/s; every N-free window of "
+        f"every contig hit, {checked} sampled contigs equal count_hits_host")
+
+    # K7 at the longest contig: time, bound, plain time
+    dev = torch.device("cuda")
+    _, longest = max(assemblies[0], key=lambda rc: len(rc[1]))
+    t0 = time.time()
+    hi, lo, valid = dna.canonical_kmers(longest, K)
+    pos_host = filt._positions(hi, lo, valid).astype(np.uint32)
+    hash_s = time.time() - t0
+    words = torch.from_numpy(filt.words.view(np.int32)).to(dev)
+    pos = torch.from_numpy(pos_host.view(np.int32)).to(dev)
+    mask = torch.from_numpy(valid).to(dev)
+    got = int(bloom.bloom_count(words, pos, mask))
+    plain = int(bloom.bloom_count_plain(words, pos, mask))
+    errors["bloom_count"] = max(errors["bloom_count"], abs(got - plain), abs(got - filt.count_hits_host(hi, lo, valid)))
+    require(errors["bloom_count"] == 0, "bloom_count disagrees at the main path's shape")
+    k7_ms = cuda_ms(lambda: bloom.bloom_count(words, pos, mask), 20)
+    k7_plain = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
+    sectors = int(torch.unique((pos[mask].long() & 0xFFFFFFFF) >> 8).numel())  # 32 B = 256 filter bits
+    k7_bytes = pos.numel() * 4 + mask.numel() + sectors * SECTOR_BYTES + 4
+    k7_bytes_ms = k7_bytes / HBM_BYTES_PER_S * 1e3
+    k7_ops_ms = int(mask.sum()) * filt.num_hashes * 6 / INT_OPS_PER_S * 1e3  # estimated: ~6 per probe
+    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {k7_ms:.4f} ms, "
+        f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
+        f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain:.4f} ms; hashing these k-mers on the host "
+        f"took {hash_s:.3f} s")
+    return launches, {
+        "bloom_count": dict(
+            ms=k7_ms, plain_ms=k7_plain, bound_ms=max(k7_bytes_ms, k7_ops_ms),
+            bound_by="bytes" if k7_bytes_ms >= k7_ops_ms else "operations", library_ms=None,
+        ),
+    }
 
 
 # ---------------------------------------------------------------- main
@@ -893,6 +1404,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     check_kernels(rng, errors)
     check_records_kernels(rng, errors)
+    check_multi_kernels(rng, errors)
 
     log("phase 3: species reads, 8 classes x 4 Mbp")
     genomes = rng.integers(0, 4, size=(8, 4_000_000), dtype=np.uint8)
@@ -911,8 +1423,8 @@ def main() -> int:
     ge_launches, ge_reads = run_path("genus", genus_idx, genus_genome, rng, card)
     time_kernels(genus_idx, ge_reads, card, errors)
     del ge_reads
-    ga_launches = run_genus_assemblies(genus_genome, genus_idx, rng, card)
-    del genus_genome, genus_idx
+    ga_launches, genus_assemblies = run_genus_assemblies(genus_genome, genus_idx, rng, card)
+    del genus_idx
 
     log("phase 5: SVM species head on reads")
     check_svm(species_idx, genomes, rng)
@@ -921,19 +1433,30 @@ def main() -> int:
     log("phase 6: records, 40-class x 4 Mbp SVM species model: fit, then 20 assemblies at steps 1 and 4")
     rec_launches, rec_timings = run_records(rng, card, errors)
 
+    log(f"phase 7: MLST, {MLST_LOCI} loci x {MLST_ALLELES} alleles x {ALLELE_LEN} bp, {MLST_GENOMES} genomes of "
+        f"{GENOME_LEN} bp (depth cut: the genome count) and {MLST_SHORT} short records")
+    mlst_launches, mlst_timings = run_mlst(rng, card, errors)
+
+    log(f"phase 8: xxh3 compat genus model over the 32 Mbp genus genome, {XXH3_ASSEMBLIES} assemblies")
+    x_launches, x_timings = run_xxh3_genus(genus_genome, genus_assemblies, card, errors)
+    del genus_genome, genus_assemblies
+
+    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings}
+    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, mlst_launches, x_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        timing = timings[name] if name in timings else rec_timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sp_launches[name] + ge_launches[name] + ga_launches[name] + rec_launches[name],
-            "max_abs_err": errors[name], **timing, "library_ms": None,
+            "launches": sum(run[name] for run in all_launches),
+            "max_abs_err": errors[name], "library_ms": None, **all_timings[name],
         })
     log(
         f"kernels [{card}]: launches summed over every main-path run (species and genus reads, "
-        f"genus assemblies, the 40-class fit and both assembly runs); unpack_2bit and "
-        f"reads_query timed at the species reads shape, records_wire and records_query at one "
-        f"4 Mbp assembly; whole run {time.time() - t_start:.1f} s"
+        f"genus assemblies, the 40-class fit and both assembly runs, classify_mlst and the three "
+        f"MLST predict runs, the xxh3 genus run); unpack_2bit and reads_query timed at the species "
+        f"reads shape, records_wire and records_query at one 4 Mbp assembly, multi_records_query "
+        f"and reduce_record_counts at one group of 4 genomes, bloom_count at the longest contig; "
+        f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,10 +12,13 @@ import pytest
 import torch
 
 import xspect2_tpu_torch
-from xspect2_tpu_torch import classify, model_cache
+from xspect2_tpu_torch import classify, filter_sequences, model_cache
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
+from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
+from xspect2_tpu_torch.models.mlst_model import ProbabilisticFilterMlstSchemeModel
 from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
+from xspect2_tpu_torch.ops.query import DeviceQueryEngine
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "xspect2_tpu_torch"
@@ -29,8 +32,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'xspect2_tpu' or m.startswith('xspect2_tpu.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'xspect2_tpu')]\n"
         "print(json.dumps(bad))\n"
     )
     out = subprocess.run(
@@ -38,16 +40,43 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert len(MODULES) >= 20
+    assert len(MODULES) >= 30
+    for module in (
+        "models.mlst_model", "core.compat", "core.xxh3", "handlers.http", "handlers.pubmlst",
+        "filter_sequences", "ops.bloom",
+    ):
+        assert f"xspect2_tpu_torch.{module}" in MODULES
+
+
+def test_the_model_modules_do_not_import_requests():
+    """``requests`` is needed by the handlers only, which the MLST model
+    imports inside its ST-name lookup: a machine without ``requests``
+    imports and runs every model."""
+    models = [m for m in MODULES if ".handlers" not in m]
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {models!r}: importlib.import_module(m)\n"
+        "print(json.dumps([m for m in sys.modules if m.split('.')[0] == 'requests'\n"
+        "                  or m.startswith('xspect2_tpu_torch.handlers.')]))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    assert "xspect2_tpu_torch.models.mlst_model" in models
 
 
 def test_port_sources_name_no_jax_import():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax\b|xspect2_tpu\b(?!_torch))", re.MULTILINE
+        r"^\s*(import|from)\s+(jax\b|sklearn\b|xspect2_tpu\b(?!_torch))", re.MULTILINE
     )
     sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
     hits = [str(p) for p in sources if pattern.search(p.read_text(encoding="utf-8"))]
     assert hits == []
+    assert {"mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py"} <= {
+        p.name for p in sources
+    }
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp_path):
@@ -57,6 +86,24 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp
         classify.classify_species("Anything", tmp_path / "in.fq", tmp_path / "out.json")
     with pytest.raises(RuntimeError):
         classify.classify_genus("Anything", tmp_path / "in.fq", tmp_path / "out.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classify.classify_mlst(tmp_path / "in.fa", "Anything", "Oxford", tmp_path / "out.json", False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        filter_sequences.filter_species("Anything", "470", tmp_path / "in.fa", tmp_path / "out.fa", 0.7)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        filter_sequences.filter_genus("Anything", tmp_path / "in.fa", tmp_path / "out.fa", 0.7)
+    saved = _small_model(tmp_path)
+    saved.save()
+    for build in (
+        lambda: DeviceQueryEngine(saved.index),
+        lambda: ProbabilisticFilterModel.load(tmp_path / "tiny-species.json"),
+        lambda: ProbabilisticFilterMlstSchemeModel(31, "S", tmp_path, "url", "org"),
+        lambda: ProbabilisticSingleFilterModel(21, "G", None, None, "Genus", tmp_path, hash_family="xxh3"),
+        lambda: XXH3BloomFilter(1000, 3, 21).count_hits_device(
+            np.zeros(1, np.uint32), np.zeros(1, np.uint32), np.ones(1, bool)),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
     with pytest.raises(RuntimeError):
         xspect2_tpu_torch.resolve_device("cuda")
     assert xspect2_tpu_torch.resolve_device("cpu").type == "cpu"
@@ -71,8 +118,9 @@ def _small_model(tmp_path):
 
 
 def test_ragged_input_and_unported_options_raise(tmp_path):
-    """Ragged input classifies (the records route); validation and the
-    xxh3 genus filter are still unported and raise."""
+    """Ragged input classifies (the records route); validation is still
+    unported and raises; the xxh3 genus filter is ported, an unknown hash
+    family raises."""
     model = _small_model(tmp_path)
     ragged = tmp_path / "ragged.fasta"
     ragged.write_text(">r1\n" + "A" * 100 + "\n>r2\n" + "C" * 120 + "\n", encoding="utf-8")
@@ -82,8 +130,11 @@ def test_ragged_input_and_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="validation slice"):
         model.predict(even, validation=True)
     assert set(model.predict(even).hits) == {"r1", "r2"}
-    with pytest.raises(NotImplementedError, match="xxh3"):
-        ProbabilisticSingleFilterModel(21, "G", None, None, "Genus", tmp_path, hash_family="xxh3")
+    genus = ProbabilisticSingleFilterModel(
+        21, "G", None, None, "Genus", tmp_path, hash_family="xxh3", device="cpu")
+    assert genus.get_index_path().name == "filter.xxh3.npz"
+    with pytest.raises(ValueError, match="unknown hash_family"):
+        ProbabilisticSingleFilterModel(21, "G", None, None, "Genus", tmp_path, hash_family="murmur", device="cpu")
 
 
 def test_saved_model_loads_back(tmp_path):
@@ -110,4 +161,9 @@ def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
     header = csrc / "kmer_probe.cuh"
     header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
     changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
-    assert changed == {"reads_query", "records_query"}
+    assert changed == {"reads_query", "records_query", "multi_records_query"}
+    before = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
+    header = csrc / "records_block.cuh"
+    header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
+    changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
+    assert changed == {"records_query", "multi_records_query"}

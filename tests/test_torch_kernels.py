@@ -164,3 +164,115 @@ def test_records_query_counts_in_global_memory_when_a_span_does_not_fit(cuda_dev
     want = query.records_query_plain(codes, rec_ids, valid, engine.table, **geom)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert int(got.sum()) > 0
+
+
+# K5's tables: field-packed C=4, two class words, 32 class words
+MULTI_GEOMETRIES = [(4, 2), (40, 7), (1000, 1)]
+
+
+def _multi_case(rng, cuda_device, num_records, lo, hi):
+    indices, genomes = [], []
+    for num_classes, h in MULTI_GEOMETRIES:
+        idx, g = _index(num_classes, h, rng, length=600)
+        indices.append(idx)
+        genomes += g[:3]
+    engines = [query.DeviceQueryEngine(idx, device=cuda_device, chunk=8192) for idx in indices]
+    records = _records(rng, genomes, num_records, lo, hi)
+    batch = query.prepare_batch(records, 21, chunk=8192)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid)]
+    return indices, engines, records, batch, max_records, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_records,lo,hi,hint", [(1, 400, 500, None), (5, 22, 500, 22), (300, 22, 600, 100), (300, 22, 40, 10**6)])
+def test_multi_records_query_kernel_matches_plain_and_single(cuda_device, num_records, lo, hi, hint):
+    """K5 over tables of three geometries in one launch equals its plain
+    version, K3 per table and the host; a wrong record-length hint sends
+    blocks to the global-atomic path and changes nothing."""
+    rng = np.random.default_rng(num_records + lo)
+    indices, engines, records, batch, max_records, inputs = _multi_case(rng, cuda_device, num_records, lo, hi)
+    tables = [e.table for e in engines]
+    geoms = [e.geometry() for e in engines]
+    before = query.multi_records_query.launches
+    got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
+    assert query.multi_records_query.launches == before + 1
+    want = query.multi_records_query_plain(tables, geoms, *inputs, max_records=max_records)
+    for idx, e, g, w in zip(indices, engines, got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        single = query.records_query(*inputs, e.table, max_records=max_records, **e.geometry())
+        torch.testing.assert_close(g, single, rtol=0, atol=0)
+        host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21)) for _, c in records])
+        np.testing.assert_array_equal(g[: len(records)].cpu().numpy(), host)
+    assert sum(int(g.sum()) for g in got) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(query.REDUCE_MODES))
+@pytest.mark.parametrize("threshold", [50, -1])
+@pytest.mark.parametrize("max_records", [8, 256])
+def test_reduce_kernel_matches_plain(cuda_device, mode, threshold, max_records):
+    rng = np.random.default_rng(max_records + threshold)
+    counts = [
+        torch.from_numpy(rng.integers(0, 120, size=(max_records, c), dtype=np.int32)).to(cuda_device)
+        for c in (4, 40, 1000)
+    ]
+    seg = np.sort(rng.integers(0, 5, size=max_records)).astype(np.int32)
+    seg[rng.integers(0, max_records, 2)] = [-1, 7]  # outside [0, 5): add nothing
+    seg_ids = torch.from_numpy(seg).to(cuda_device)
+    before = query.reduce_record_counts.launches
+    got = query.reduce_record_counts(counts, mode, threshold, seg_ids, 5)
+    assert query.reduce_record_counts.launches == before + 1
+    want = query.reduce_record_counts_plain(counts, mode, threshold, seg_ids, 5)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_multi_packed_query_launches_each_kernel_once(cuda_device):
+    """One fused call: K1 and K4 once, K5 once over all tables, K6 once."""
+    rng = np.random.default_rng(3)
+    indices, engines, records, batch, max_records, _ = _multi_case(rng, cuda_device, 20, 100, 600)
+    wire = engines[0].upload_records_wire(batch, max_records)
+    seg = np.zeros(max_records, dtype=np.int32)
+    seg[: len(records)] = np.arange(len(records)) // 7
+    fused = query.make_multi_packed_query(
+        [e.geometry() for e in engines], 1, batch.num_positions,
+        reduce_mode="thresholded_segment_totals", threshold=-1, num_segments=3,
+    )
+    names = ("unpack_2bit", "records_wire", "multi_records_query", "reduce_record_counts")
+    before = {n: getattr(query, n).launches for n in names}
+    outs = fused([e.table for e in engines], *wire, torch.from_numpy(seg).to(cuda_device))
+    assert {n: getattr(query, n).launches - before[n] for n in names} == dict.fromkeys(names, 1)
+    for idx, out in zip(indices, outs):
+        host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21)) for _, c in records])
+        want = np.stack([host[seg[: len(records)] == s].sum(axis=0) for s in range(3)])
+        np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 777, 100_000])
+def test_bloom_count_kernel_matches_plain_and_host(cuda_device, n):
+    from xspect2_tpu_torch.core import compat
+    from xspect2_tpu_torch.ops import bloom
+
+    rng = np.random.default_rng(n)
+    genome = rng.integers(0, 4, size=20_000, dtype=np.uint8)
+    filt = compat.XXH3BloomFilter.for_items(len(genome) - 20, 0.01, 21, device=cuda_device)
+    assert filt.num_hashes == 7
+    filt.insert_packed(*dna.canonical_kmers(genome, 21))
+    probe = np.concatenate([genome[: n // 2 + 21], rng.integers(0, 4, size=n, dtype=np.uint8)])[: n + 20]
+    probe[rng.integers(0, len(probe), 3)] = 255
+    hi, lo, valid = dna.canonical_kmers(probe, 21)
+    before = bloom.bloom_count.launches
+    got = filt.count_hits_device(hi, lo, valid)
+    assert bloom.bloom_count.launches == before + 1
+    assert got == filt.count_hits_host(hi, lo, valid)
+    words = torch.from_numpy(filt.words.view(np.int32)).to(cuda_device)
+    pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(cuda_device)
+    mask = torch.from_numpy(valid).to(cuda_device)
+    assert int(bloom.bloom_count_plain(words, pos, mask)) == got
+    # a position past the filter is a miss on both
+    pos[0, 0] = -1
+    assert int(bloom.bloom_count(words, pos, mask)) == int(bloom.bloom_count_plain(words, pos, mask))

@@ -1,4 +1,4 @@
-"""Classification facades: genus and species.
+"""Classification facades: genus, species and MLST.
 
 Resolve the model by genus, fan out over the input (a file, or every
 sequence file of a directory) and write one result JSON per input, as
@@ -70,4 +70,21 @@ def classify_species(
         step=step,
         display_name=display_name,
         validation=validation,
+    )
+
+
+def classify_mlst(
+    input_path: Path, organism, mlst_scheme, output_path: Path, limit: bool, device=None
+):
+    """Classify the strain type using the specified MLST model."""
+    from xspect2_tpu_torch.models.mlst_model import ProbabilisticFilterMlstSchemeModel
+
+    _classify_inputs(
+        ProbabilisticFilterMlstSchemeModel,
+        mm.get_mlst_model_path(organism, mlst_scheme),
+        input_path,
+        output_path,
+        device,
+        step=1,
+        limit=limit,
     )

@@ -25,22 +25,17 @@
 // Bound: random 32-byte sector reads of the table, one per probe word
 // (h per counted window, cw*h when P=1); the codes, record ids and
 // validity stream (6 bytes per position).  Design: a thread block owns a
-// contiguous range of positions.  It first finds the span of record ids
-// of its VALID positions (the raw wire's padding carries record id 0 and
-// is never valid, so record ids are not monotone over a block's range);
-// when the span fits the block's shared-memory counter rows, hits are
-// counted per (record, class) in shared memory and each non-zero
-// counter is added to the output with one global atomic.  Otherwise the
-// block adds every hit to the output with its own global atomic.  The
-// wrapper picks the range length from the batch's shortest record so
-// that the shared path is the common one.  Any class count works: with
-// no counter row at all every block counts in global memory.
+// contiguous range of positions and counts it as records_block.cuh says
+// (per (record, class) in shared memory when the block's record span
+// fits, with global atomics otherwise).  The wrapper picks the range
+// length from the batch's shortest record so that the shared path is the
+// common one.  Any class count works: with no counter row at all every
+// block counts in global memory.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "kmer_probe.cuh"
+#include "records_block.cuh"
 
 namespace {
 
@@ -60,61 +55,10 @@ __global__ void records_query_kernel(const uint8_t* __restrict__ codes,
                                      const uint32_t* __restrict__ table,
                                      int32_t* __restrict__ out, const Geom g) {
   extern __shared__ int32_t s_counts[];
-  __shared__ int s_first, s_last;
-  const int num_classes = g.probe.num_classes;
   const int64_t p0 = int64_t(blockIdx.x) * g.positions_per_block;
   const int64_t p1 = p0 + g.positions_per_block < g.n_pos ? p0 + g.positions_per_block : g.n_pos;
-
-  // record span of the block's valid positions
-  if (threadIdx.x == 0) {
-    s_first = INT_MAX;
-    s_last = -1;
-  }
-  __syncthreads();
-  int first = INT_MAX, last = -1;
-  for (int64_t p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-    if (!valid[p]) continue;
-    const int r = rec_ids[p];
-    if (r < 0 || r >= g.max_records) continue;
-    first = min(first, r);
-    last = max(last, r);
-  }
-  first = __reduce_min_sync(0xFFFFFFFFu, first);
-  last = __reduce_max_sync(0xFFFFFFFFu, last);
-  if ((threadIdx.x & 31) == 0) {
-    atomicMin(&s_first, first);
-    atomicMax(&s_last, last);
-  }
-  __syncthreads();
-  const int r_first = s_first, r_last = s_last;
-  if (r_last < 0) return;  // no valid position in this block
-  const int span = r_last - r_first + 1;
-  const bool shared = span <= g.counter_rows;
-  if (shared) {
-    for (int i = threadIdx.x; i < span * num_classes; i += blockDim.x) s_counts[i] = 0;
-  }
-  __syncthreads();
-
-  for (int64_t p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-    if (!valid[p]) continue;
-    const int r = rec_ids[p];
-    if (r < 0 || r >= g.max_records) continue;
-    uint32_t hi, lo;
-    if (!xs::canonical_window(codes + p, g.probe.k, hi, lo)) continue;
-    int32_t* cnt = shared ? s_counts + (r - r_first) * num_classes
-                          : out + int64_t(r) * num_classes;
-    xs::probe_and_count(table, g.probe, hi, lo, cnt);
-  }
-  if (!shared) return;
-
-  __syncthreads();
-  for (int i = threadIdx.x; i < span * num_classes; i += blockDim.x) {
-    const int32_t val = s_counts[i];
-    if (val) {
-      atomicAdd(out + (int64_t(r_first) + i / num_classes) * num_classes + i % num_classes,
-                val);
-    }
-  }
+  xs::count_records_block(codes, rec_ids, valid, table, out, p0, p1, g.max_records,
+                          g.counter_rows, g.probe, s_counts);
 }
 
 }  // namespace

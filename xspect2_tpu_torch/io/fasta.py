@@ -1,4 +1,4 @@
-"""FASTA/FASTQ parsing.
+"""FASTA/FASTQ parsing and writing.
 
 A dependency-free streaming parser.  Record ids are the first
 whitespace-delimited token of the header line; iteration order is file
@@ -90,3 +90,16 @@ def get_record_iterator(file_path: Path) -> Iterator[SeqRecord]:
         return parse_fastq(file_path)
     raise ValueError("Invalid file format, must be a fasta or fastq file")
 
+
+
+def write_fasta(records, path: Path, line_width: int = 60) -> None:
+    """Write records to a FASTA file, sequences wrapped at 60 columns."""
+    with open(path, "w", encoding="utf-8") as f:
+        for rec in records:
+            desc = rec.description if rec.description else rec.id
+            if desc.split(None, 1)[0:1] != [rec.id]:
+                desc = f"{rec.id} {desc}".strip()
+            f.write(f">{desc}\n")
+            seq = rec.seq
+            for i in range(0, len(seq), line_width):
+                f.write(seq[i : i + line_width] + "\n")

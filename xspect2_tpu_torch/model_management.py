@@ -25,6 +25,10 @@ def get_species_model_path(genus: str) -> Path:
     return metadata_path(f"{genus}-species")
 
 
+def get_mlst_model_path(organism: str, scheme: str) -> Path:
+    return metadata_path(f"{organism}-{scheme}-mlst")
+
+
 def get_model_metadata(model: str | Path) -> dict:
     """Load a metadata document by slug or by direct file path."""
     target = model if isinstance(model, Path) else metadata_path(model)

@@ -192,12 +192,13 @@ class ProbabilisticFilterModel:
         self, counts: np.ndarray, exclude_ids: list[str] | None, display_name: bool
     ) -> dict[str, int]:
         rec_hits = self._hits_dict_from_counts(counts, exclude_ids)
-        if display_name:
-            rec_hits = {
-                f"{key} -{self.display_names.get(key, 'Unknown').replace(self.model_display_name, '', 1)}": v
-                for key, v in rec_hits.items()
-            }
-        return rec_hits
+        return self._with_display_names(rec_hits) if display_name else rec_hits
+
+    def _with_display_names(self, rec_hits: dict[str, int]) -> dict[str, int]:
+        return {
+            f"{key} -{self.display_names.get(key, 'Unknown').replace(self.model_display_name, '', 1)}": v
+            for key, v in rec_hits.items()
+        }
 
     def calculate_hits(
         self, sequence, exclude_ids: list[str] | None = None, step: int = 1

@@ -1,6 +1,7 @@
 """Result objects.
 
-``ModelResult`` is a copy of the JAX package's result class, so result
+``MlstResult`` wraps MLST hits as ``{Scheme, Steps, Results,
+Input_source}``.  ``ModelResult`` is a copy of the JAX package's result class, so result
 JSON comes out byte-identical: per-record hits, per-record k-mer
 counts, scores = ``round(hits / num_kmers, 2)`` per record plus a
 ``"total"`` row over summed hits/kmers, threshold/argmax filter masks,
@@ -123,3 +124,34 @@ class ModelResult:
         path.parent.mkdir(exist_ok=True, parents=True)
         path.write_text(json.dumps(self.to_dict(), indent=4), encoding="utf-8")
 
+
+class MlstResult:
+    """MLST result wrapper: {Scheme, Steps, Results, Input_source}."""
+
+    def __init__(
+        self,
+        scheme: str,
+        steps: int,
+        hits: dict[str, list[dict]],
+        input_source: str | None = None,
+    ):
+        self.scheme = scheme
+        self.steps = steps
+        self.hits = hits
+        self.input_source = input_source
+
+    def get_results(self) -> dict:
+        return self.hits
+
+    def to_dict(self) -> dict:
+        return {
+            "Scheme": self.scheme,
+            "Steps": self.steps,
+            "Results": self.get_results(),
+            "Input_source": self.input_source,
+        }
+
+    def save(self, output_path: Path | str) -> None:
+        output_path = Path(output_path)
+        output_path.parent.mkdir(exist_ok=True, parents=True)
+        output_path.write_text(json.dumps(self.to_dict(), indent=4), encoding="utf-8")

@@ -1,17 +1,26 @@
-"""Single-filter (genus) model, blocked hash family.
+"""Single-filter (genus) model.
 
-One class column of the blocked bit-sliced index holding the canonical
-k-mers of a whole genus, queried by the same device engine as the
-species model.  The xxh3 compat family belongs to a later slice of the
-port and raises ``NotImplementedError``.
+One Bloom-filter column holding the canonical k-mers of a whole genus.
+``hash_family`` selects the filter:
+
+- ``"blocked"`` (default, the throughput path): one class column of the
+  blocked bit-sliced index, queried by the same device engine as the
+  species model.
+- ``"xxh3"``: the compat mode (:mod:`xspect2_tpu_torch.core.compat`):
+  XXH3-64 over the ASCII canonical k-mer string, hashed on the host,
+  with the bit tests on the device; a parity and verification mode.
 """
 
+import json
 from pathlib import Path
 
 from xspect2_tpu_torch import native
+from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
+from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.io.fasta import get_record_iterator
-from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
+from xspect2_tpu_torch.models.filter_model import VALIDATION_SLICE, ProbabilisticFilterModel
+from xspect2_tpu_torch.models.result import ModelResult
 
 
 class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
@@ -30,12 +39,7 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
         hash_family: str = "blocked",
         device=None,
     ) -> None:
-        if hash_family == "xxh3":
-            raise NotImplementedError(
-                "the xxh3 compat genus filter is not ported to PyTorch yet; "
-                "use xspect2_tpu"
-            )
-        if hash_family != "blocked":
+        if hash_family not in ("blocked", "xxh3"):
             raise ValueError(f"unknown hash_family: {hash_family!r}")
         super().__init__(
             k=k,
@@ -50,9 +54,18 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
             device=device,
         )
         self.hash_family = hash_family
+        self.compat_filter: XXH3BloomFilter | None = None
 
     def get_index_path(self) -> Path:
+        if self.hash_family == "xxh3":
+            return self.base_path / self.slug() / "filter.xxh3.npz"
         return self.base_path / self.slug() / "filter.bbsi"
+
+    def to_dict(self) -> dict:
+        d = super().to_dict()
+        if self.hash_family != "blocked":
+            d["hash_family"] = self.hash_family
+        return d
 
     def fit(
         self,
@@ -67,9 +80,18 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
         """
         self.training_accessions = training_accessions
         total_length = sum(len(record.seq) for record in get_record_iterator(file_path))
+        num_kmers = max(1, total_length - self.k + 1)
+        if self.hash_family == "xxh3":
+            # the compat filter, sized like Bloom(n, fpr)
+            filt = XXH3BloomFilter.for_items(num_kmers, self.fpr, self.k, self.device)
+            for record in get_record_iterator(file_path):
+                filt.insert_sequence(str(record.seq))
+            self.compat_filter = filt
+            self.display_names[file_path.stem] = display_name
+            filt.save(self.get_index_path())
+            return
         index = BlockedBitSlicedIndex.create(
-            self.k, [file_path.stem], max(1, total_length - self.k + 1),
-            fpr=self.fpr, num_hashes=None,
+            self.k, [file_path.stem], num_kmers, fpr=self.fpr, num_hashes=None,
         )
         codes, offsets, _ids = native.parse_file(file_path)
         for r in range(len(offsets) - 1):
@@ -78,6 +100,47 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
         self._engine = None
         self.display_names[file_path.stem] = display_name
         index.save(self.get_index_path())
+
+    # ------------------------------------------------- xxh3 compat mode
+
+    def calculate_hits(self, sequence, exclude_ids: list[str] | None = None, step: int = 1) -> dict:
+        if self.compat_filter is None:
+            return super().calculate_hits(sequence, exclude_ids, step=step)
+        seq = sequence.seq if hasattr(sequence, "seq") else sequence
+        if not isinstance(seq, str):
+            seq = str(seq)
+        if not len(seq) > self.k:
+            raise ValueError("Invalid sequence, must be longer than k")
+        hi, lo, valid = dna.canonical_kmers(dna.encode(seq), self.k, step=step)
+        # single-class model: the one trained genus file's stem
+        name = next(iter(self.display_names), "metagenome")
+        if exclude_ids and name in exclude_ids:
+            return {}
+        return {name: self.compat_filter.count_hits_device(hi, lo, valid)}
+
+    def predict(
+        self,
+        sequence_input,
+        exclude_ids: list[str] | None = None,
+        step: int = 1,
+        display_name: bool = False,
+        validation: bool = False,
+    ) -> ModelResult:
+        if self.compat_filter is None:
+            return super().predict(sequence_input, exclude_ids, step, display_name, validation)
+        if validation:
+            raise NotImplementedError(VALIDATION_SLICE)
+        hits: dict[str, dict[str, int]] = {}
+        num_kmers: dict[str, int] = {}
+        for rec in self._as_record_iterable(sequence_input):
+            rec_hits = self.calculate_hits(rec, exclude_ids, step=step)
+            hits[rec.id] = self._with_display_names(rec_hits) if display_name else rec_hits
+            num_kmers[rec.id] = self._count_kmers(str(rec.seq), step=step)
+        if not hits:
+            raise ValueError("No sequences found in input")
+        return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
+
+    # ------------------------------------------------------- persistence
 
     @classmethod
     def _from_metadata(cls, model_json: dict, base_path: Path, device):
@@ -93,3 +156,16 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
             hash_family=model_json.get("hash_family", "blocked"),
             device=device,
         )
+
+    @classmethod
+    def load(cls, path: Path, device=None) -> "ProbabilisticSingleFilterModel":
+        model_json = json.loads(Path(path).read_text(encoding="utf-8"))
+        if model_json.get("hash_family", "blocked") != "xxh3":
+            return super().load(path, device=device)
+        model = cls._from_metadata(model_json, Path(path).parent, device)
+        model.display_names = model_json["display_names"]
+        index_path = model.get_index_path()
+        if not index_path.exists():
+            raise FileNotFoundError(f"Filter file not found at {index_path}")
+        model.compat_filter = XXH3BloomFilter.load(index_path, model.device)
+        return model

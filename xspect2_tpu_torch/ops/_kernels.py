@@ -45,6 +45,16 @@ SIGNATURES = {
         [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
          _i64, _i32, _vp],
     ),
+    # tables, outs and the geometry rows are host arrays (ctypes arrays)
+    "multi_records_query": (
+        "xs_multi_records_query",
+        [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp, _vp, _vp, _vp],
+    ),
+    "segment_reduce": (
+        "xs_segment_reduce",
+        [_vp, _vp, _vp, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _vp],
+    ),
+    "bloom_count": ("xs_bloom_count", [_vp, _vp, _vp, _vp, _i64, _i32, _i64, _vp]),
 }
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 

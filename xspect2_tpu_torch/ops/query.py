@@ -1,6 +1,6 @@
-"""k-mer query on the device: the wires, four kernels, the engine.
+"""k-mer query on the device: the wires, six kernels, the engine.
 
-Two paths of the JAX package (``xspect2_tpu/ops/query.py``):
+Three paths of the JAX package (``xspect2_tpu/ops/query.py``):
 
 Uniform reads (the FASTQ path):
 
@@ -25,12 +25,26 @@ Ragged records (assemblies, record lists):
    per-record, per-class hits of every valid window.  The raw wire
    ships codes, record ids and validity and goes to K3 directly.
 
+Several indices over one batch (MLST strain typing, one index per
+locus; :func:`make_multi_packed_query`):
+
+1. K1 and K4 restore codes, record ids and validity from the compact
+   wire once;
+2. :func:`multi_records_query` (kernel K5,
+   ``csrc/multi_records_query.cu``) counts per-record, per-class hits
+   against every table in one launch;
+3. :func:`reduce_record_counts` (kernel K6, ``csrc/segment_reduce.cu``)
+   reduces the counts over the records on the device (thresholded
+   totals, the first record, or thresholded totals per segment), so the
+   fetch is [C] or [num_segments, C] per index.
+
 Each kernel wrapper has a plain PyTorch version of the same function
 beside it.  The wrapper uses the plain version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its launches in its ``launches`` attribute.
 """
 
+import ctypes
 import math
 from dataclasses import dataclass, field
 
@@ -52,8 +66,10 @@ _PLAIN_POSITIONS = 1 << 20
 # shared-memory bytes for K2's per-block (read, class) and K3's
 # per-block (record, class) counters
 _SHARED_COUNTER_BYTES = 32768
-# kept windows handled by one K2 thread block, positions by one K3 block
+# kept windows handled by one K2 thread block, positions by one K3 or K5 block
 _WINDOWS_PER_BLOCK = 2048
+# record slots summed by one K6 thread block
+_REDUCE_ROWS = 32
 
 
 def _next_pow2(n: int) -> int:
@@ -563,6 +579,34 @@ records_wire.launches = 0
 # ---------------------------------------------------------------- K3: records query
 
 
+def _check_records_inputs(codes, rec_ids, valid, k, max_records):
+    if codes.dtype != torch.uint8 or codes.dim() != 1:
+        raise ValueError("codes must be a 1-D uint8 tensor")
+    if rec_ids.dtype != torch.int32 or rec_ids.dim() != 1:
+        raise ValueError("rec_ids must be a 1-D int32 tensor")
+    if valid.dtype not in (torch.bool, torch.uint8) or tuple(valid.shape) != tuple(rec_ids.shape):
+        raise ValueError("valid must be a bool or uint8 tensor shaped like rec_ids")
+    n_pos = rec_ids.numel()
+    if codes.numel() < n_pos + k - 1:
+        raise ValueError(f"codes must hold n_pos + k - 1 = {n_pos + k - 1} bases")
+    if max_records < 1:
+        raise ValueError("max_records must be >= 1")
+
+
+def _block_range(num_classes: int, max_records: int, record_len: int | None, k: int):
+    """``(positions_per_block, counter_rows)`` of a records kernel's
+    thread blocks.  A block's positions span at most
+    ``(ppb-1)//record_len + 2`` records, whose counters should fit its
+    shared-memory rows; a block whose span does not fit counts in global
+    memory instead, so the counts do not depend on the choice."""
+    shortest = max(k + 1, record_len or 0)
+    rows = min(_counter_rows(num_classes), max_records)
+    ppb = _WINDOWS_PER_BLOCK
+    if rows >= 3:
+        ppb = min(ppb, (rows - 2) * shortest + 1)
+    return ppb, rows
+
+
 def records_query_plain(
     codes: torch.Tensor,
     rec_ids: torch.Tensor,
@@ -631,17 +675,7 @@ def records_query(
     thread blocks so that most count in shared memory; the counts do
     not depend on it.
     """
-    if codes.dtype != torch.uint8 or codes.dim() != 1:
-        raise ValueError("codes must be a 1-D uint8 tensor")
-    if rec_ids.dtype != torch.int32 or rec_ids.dim() != 1:
-        raise ValueError("rec_ids must be a 1-D int32 tensor")
-    if valid.dtype not in (torch.bool, torch.uint8) or tuple(valid.shape) != tuple(rec_ids.shape):
-        raise ValueError("valid must be a bool or uint8 tensor shaped like rec_ids")
-    n_pos = rec_ids.numel()
-    if codes.numel() < n_pos + k - 1:
-        raise ValueError(f"codes must hold n_pos + k - 1 = {n_pos + k - 1} bases")
-    if max_records < 1:
-        raise ValueError("max_records must be >= 1")
+    _check_records_inputs(codes, rec_ids, valid, k, max_records)
     geom = dict(
         k=k, num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
         num_hashes=num_hashes, fields_per_word=fields_per_word, num_classes=num_classes,
@@ -654,14 +688,8 @@ def records_query(
             raise ValueError("codes, rec_ids, valid and table must share one device")
     codes, rec_ids, table = codes.contiguous(), rec_ids.contiguous(), table.contiguous()
     valid = valid.contiguous().view(torch.uint8)
-    # a block's positions span at most (ppb-1)//shortest + 2 records,
-    # whose counters should fit its shared-memory rows; a block whose
-    # span does not fit counts in global memory instead
-    shortest = max(k + 1, min_record_len or 0)
-    rows = min(_counter_rows(num_classes), max_records)
-    ppb = _WINDOWS_PER_BLOCK
-    if rows >= 3:
-        ppb = min(ppb, (rows - 2) * shortest + 1)
+    ppb, rows = _block_range(num_classes, max_records, min_record_len, k)
+    n_pos = rec_ids.numel()
     out = torch.zeros((max_records, num_classes), dtype=torch.int32, device=codes.device)
     fn = _kernels.entry("records_query")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
@@ -676,6 +704,232 @@ def records_query(
 
 
 records_query.launches = 0
+
+
+# ---------------------------------------------------------------- K5: multi-index query
+
+# tables per launch of K5 and K6: their descriptors travel in the
+# kernels' parameters (MLST schemes have 7 or 8 loci)
+MAX_TABLES = 16
+_GEOM_KEYS = ("num_blocks", "rows_per_block", "class_words", "num_hashes",
+              "fields_per_word", "num_classes")
+
+
+def _check_tables(tables, geoms):
+    if len(tables) != len(geoms):
+        raise ValueError("tables and geoms must have equal length")
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(
+            f"a multi-index query takes 1 to {MAX_TABLES} tables, not {len(tables)}"
+        )
+    if len({g["k"] for g in geoms}) != 1:
+        raise ValueError("all tables of a multi-index query must share k")
+    for table, g in zip(tables, geoms):
+        _check_table_geometry(table, **g)
+
+
+def multi_records_query_plain(tables, geoms, codes, rec_ids, valid, *, max_records: int):
+    """Plain PyTorch version of :func:`multi_records_query`: the plain
+    records query once per table."""
+    return [
+        records_query_plain(codes, rec_ids, valid, table, max_records=max_records, **g)
+        for table, g in zip(tables, geoms)
+    ]
+
+
+def multi_records_query(
+    tables, geoms, codes, rec_ids, valid, *, max_records: int, min_record_len: int | None = None
+):
+    """Per-record, per-class hit counts of one flat batch against several
+    index tables: a list of int32 [max_records, C_l], one per table.
+
+    ``tables`` are device layouts as int32, ``geoms`` their geometries
+    (:meth:`DeviceQueryEngine.geometry`); all share ``k``, everything
+    else is each table's own.  ``codes``, ``rec_ids`` and ``valid`` are
+    those of :func:`records_query`, and table l's counts equal
+    ``records_query`` on it.  At most :data:`MAX_TABLES` tables go into
+    one launch.  ``min_record_len``, the length of the batch's typical
+    record, sizes each table's thread blocks; the counts do not depend
+    on it.  The returned tensors are views of one buffer.
+    """
+    tables, geoms = list(tables), list(geoms)
+    _check_tables(tables, geoms)
+    k = geoms[0]["k"]
+    _check_records_inputs(codes, rec_ids, valid, k, max_records)
+    if codes.device.type == "cpu":
+        return multi_records_query_plain(
+            tables, geoms, codes, rec_ids, valid, max_records=max_records
+        )
+    for t in (rec_ids, valid, *tables):
+        if t.device != codes.device:
+            raise ValueError("codes, rec_ids, valid and every table must share one device")
+    codes, rec_ids = codes.contiguous(), rec_ids.contiguous()
+    valid = valid.contiguous().view(torch.uint8)
+    tables = [t.contiguous() for t in tables]
+    sizes = [max_records * g["num_classes"] for g in geoms]
+    flat = torch.zeros(sum(sizes), dtype=torch.int32, device=codes.device)
+    outs = [
+        part.view(max_records, g["num_classes"]) for part, g in zip(flat.split(sizes), geoms)
+    ]
+    rows = []
+    for g in geoms:
+        ppb, counter_rows = _block_range(g["num_classes"], max_records, min_record_len, k)
+        rows += [g[key] for key in _GEOM_KEYS] + [ppb, counter_rows]
+    n = len(tables)
+    fn = _kernels.entry("multi_records_query")
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = fn(
+        codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), rec_ids.numel(), k,
+        max_records, n, (ctypes.c_void_p * n)(*(t.data_ptr() for t in tables)),
+        (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
+        (ctypes.c_int64 * len(rows))(*rows), stream,
+    )
+    _kernels.check("multi_records_query", rc)
+    multi_records_query.launches += 1
+    return outs
+
+
+multi_records_query.launches = 0
+
+
+# ---------------------------------------------------------------- K6: reduction
+
+REDUCE_MODES = ("thresholded_totals", "first_record", "thresholded_segment_totals")
+
+
+def reduce_record_counts_plain(counts, mode, threshold=0, seg_ids=None, num_segments=None):
+    """Plain PyTorch version of :func:`reduce_record_counts`."""
+    outs = []
+    for h in counts:
+        if mode == "first_record":
+            outs.append(h[0].clone())
+            continue
+        hz = torch.where(h > threshold, h, 0)
+        if mode == "thresholded_totals":
+            outs.append(hz.sum(dim=0, dtype=torch.int32))
+            continue
+        seg = seg_ids.long()
+        keep = (seg >= 0) & (seg < num_segments)
+        out = torch.zeros((num_segments, h.shape[1]), dtype=torch.int32, device=h.device)
+        outs.append(out.index_add_(0, seg[keep], hz[keep]))
+    return outs
+
+
+def reduce_record_counts(counts, mode, threshold=0, seg_ids=None, num_segments=None):
+    """Reduce per-record hit counts over the records, on the device.
+
+    ``counts`` is a sequence of int32 [max_records, C_l] tensors (the
+    outputs of :func:`multi_records_query`), at most :data:`MAX_TABLES`;
+    one launch reduces all of them.  ``mode`` is
+
+    - ``"thresholded_totals"``: ``sum_r where(h > threshold, h, 0)``,
+      int32 [C_l] (``>`` is strict; ``threshold=-1`` keeps every count);
+    - ``"first_record"``: row 0, int32 [C_l];
+    - ``"thresholded_segment_totals"``: the thresholded counts summed
+      per segment, int32 [num_segments, C_l]; ``seg_ids`` is int32
+      [max_records], record slot -> segment, and an entry outside
+      ``[0, num_segments)`` adds nothing.
+    """
+    counts = list(counts)
+    if mode not in REDUCE_MODES:
+        raise ValueError(f"unknown reduce mode {mode!r}: expected one of {REDUCE_MODES}")
+    if not 1 <= len(counts) <= MAX_TABLES:
+        raise ValueError(f"a reduction takes 1 to {MAX_TABLES} count tensors, not {len(counts)}")
+    max_records = counts[0].shape[0]
+    for h in counts:
+        if h.dtype != torch.int32 or h.dim() != 2 or h.shape[0] != max_records or not h.numel():
+            raise ValueError("counts must be non-empty 2-D int32 tensors of equal row count")
+        if h.device != counts[0].device:
+            raise ValueError("all count tensors must share one device")
+    segmented = mode == "thresholded_segment_totals"
+    if segmented:
+        if not num_segments or num_segments < 1:
+            raise ValueError("thresholded_segment_totals requires num_segments >= 1")
+        if seg_ids is None or seg_ids.dtype != torch.int32 or tuple(seg_ids.shape) != (max_records,):
+            raise ValueError("seg_ids must be an int32 tensor of max_records entries")
+        if seg_ids.device != counts[0].device:
+            raise ValueError("seg_ids and the counts must share one device")
+    device = counts[0].device
+    if device.type == "cpu":
+        return reduce_record_counts_plain(counts, mode, threshold, seg_ids, num_segments)
+    counts = [h.contiguous() for h in counts]
+    out_rows = num_segments if segmented else 1
+    sizes = [out_rows * h.shape[1] for h in counts]
+    flat = torch.zeros(sum(sizes), dtype=torch.int32, device=device)
+    outs = [
+        part.view(out_rows, h.shape[1]) if segmented else part
+        for part, h in zip(flat.split(sizes), counts)
+    ]
+    seg = seg_ids.contiguous() if segmented else None
+    n = len(counts)
+    fn = _kernels.entry("segment_reduce")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(
+        (ctypes.c_void_p * n)(*(h.data_ptr() for h in counts)),
+        (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
+        (ctypes.c_int * n)(*(h.shape[1] for h in counts)), n,
+        seg.data_ptr() if segmented else None, max_records,
+        REDUCE_MODES.index(mode), threshold, out_rows, min(_REDUCE_ROWS, max_records), stream,
+    )
+    _kernels.check("segment_reduce", rc)
+    reduce_record_counts.launches += 1
+    return outs
+
+
+reduce_record_counts.launches = 0
+
+
+def restore_records_wire(packed, bad_pos, offsets, n_pos: int, *, k: int, step: int):
+    """Codes, record ids and validity of a compact records wire
+    (:func:`packed_wire_for_batch`) on its device: K1 on the flat wire,
+    then K4."""
+    codes = unpack_2bit(
+        packed.view(1, -1), torch.zeros_like(bad_pos), bad_pos, n_pos + k - 1
+    ).view(-1)
+    rec_ids, valid = records_wire(offsets, n_pos, k=k, step=step)
+    return codes, rec_ids, valid
+
+
+def make_multi_packed_query(
+    geoms,
+    step: int,
+    n_pos: int,
+    reduce_mode: str | None = None,
+    threshold: int = 0,
+    num_segments: int | None = None,
+    min_record_len: int | None = None,
+):
+    """The query of SEVERAL indices over one compact records wire, with
+    the reduction over the records on the device: the counterpart of the
+    JAX package's ``make_multi_packed_query``.
+
+    Returns ``fn(tables, packed, bad_pos, offsets, seg_ids=None)`` giving
+    a tuple with one tensor per table: int32 [max_records, C_l] when
+    ``reduce_mode`` is None, else what :func:`reduce_record_counts`
+    gives for that mode.  ``geoms`` are the tables' geometries,
+    ``n_pos`` the batch's position count (``max_records`` is read off
+    ``offsets``).  One call launches K1 and K4 once, K5 once over all
+    tables and K6 once.
+    """
+    geoms = list(geoms)
+    if reduce_mode is not None and reduce_mode not in REDUCE_MODES:
+        raise ValueError(f"unknown reduce mode {reduce_mode!r}: expected one of {REDUCE_MODES}")
+    if reduce_mode == "thresholded_segment_totals" and (not num_segments or num_segments < 1):
+        raise ValueError("thresholded_segment_totals requires num_segments >= 1")
+
+    def fn(tables, packed, bad_pos, offsets, seg_ids=None):
+        codes, rec_ids, valid = restore_records_wire(
+            packed, bad_pos, offsets, n_pos, k=geoms[0]["k"], step=step
+        )
+        counts = multi_records_query(
+            tables, geoms, codes, rec_ids, valid,
+            max_records=offsets.numel() - 1, min_record_len=min_record_len,
+        )
+        if reduce_mode is None:
+            return tuple(counts)
+        return tuple(reduce_record_counts(counts, reduce_mode, threshold, seg_ids, num_segments))
+
+    return fn
 
 
 # ---------------------------------------------------------------- engine
@@ -791,12 +1045,8 @@ class DeviceQueryEngine:
         max_records = _next_pow2(max(8, batch.num_records))
         if wire == "packed":
             packed, bad_pos, offsets = self.upload_records_wire(batch, max_records)
-            n_tot = len(batch.codes)
-            codes = unpack_2bit(
-                packed.view(1, -1), torch.zeros_like(bad_pos), bad_pos, n_tot
-            ).view(-1)
-            rec_ids, valid = records_wire(
-                offsets, batch.num_positions, k=idx.k, step=batch.step
+            codes, rec_ids, valid = restore_records_wire(
+                packed, bad_pos, offsets, batch.num_positions, k=idx.k, step=batch.step
             )
         else:
             codes, rec_ids, valid = (
