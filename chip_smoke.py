@@ -22,7 +22,15 @@ width:
   ``classify_mlst`` on a FASTA of 4 Mbp genomes with one known allele
   per locus and a few short records (K1, K4, K5, K6);
 - xxh3 genus: the compat genus model fitted on the 32 Mbp genus genome,
-  then ``classify_genus`` on assemblies drawn from it (K7).
+  then ``classify_genus`` on assemblies drawn from it (K7);
+- sharded: ``xspect2_tpu_torch.parallel`` on the same tables and reads.
+  The machine has one card, so every shard of each (data x blk) and
+  (data x cls) mesh is evaluated in turn on it (K1-K4, K2 and K3 in
+  their owned-block mode) and combined by hand, which must give the
+  single engine's counts exactly; then both classifiers run through
+  their public methods on a 1x1 mesh with NCCL at world size 1;
+- the probe-select microbenchmark
+  (``xspect2_tpu_torch.tools.microbench_probe``) at its default shape (K8).
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -80,6 +88,7 @@ KERNELS = {
     "multi_records_query": ("xspect2_tpu_torch/csrc/multi_records_query.cu", "xspect2_tpu/ops/query.py:854"),
     "reduce_record_counts": ("xspect2_tpu_torch/csrc/segment_reduce.cu", "xspect2_tpu/ops/query.py:909"),
     "bloom_count": ("xspect2_tpu_torch/csrc/bloom_count.cu", "xspect2_tpu/core/compat.py:205"),
+    "probe_select": ("xspect2_tpu_torch/csrc/probe_select.cu", "tools/microbench_pallas.py:74"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
 # random HBM read, and the 32-bit non-tensor rate, above which the
@@ -87,6 +96,9 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 SECTOR_BYTES = 32
 INT_OPS_PER_S = 67e12
+# NVLink to the other cards of a host, each way (same data sheet): the rate
+# a collective between cards cannot beat
+NVLINK_BYTES_PER_S = 450e9
 
 
 def log(msg: str) -> None:
@@ -138,9 +150,10 @@ def card_line(card: str) -> str:
 
 def wrapper(name: str):
     """The kernel wrapper ``name``, which carries the launch count."""
-    from xspect2_tpu_torch.ops import bloom, query
+    from xspect2_tpu_torch.ops import bloom, probe_select, query
 
-    return getattr(bloom if name == "bloom_count" else query, name)
+    module = {"bloom_count": bloom, "probe_select": probe_select}.get(name, query)
+    return getattr(module, name)
 
 
 def reset_launches() -> None:
@@ -890,6 +903,7 @@ def run_records(rng, card, errors):
     own = [float(row.split(",")[1 + names.index(row.split(",")[-1])]) for row in scores[1:]]
     log(f"  scores.csv: own-class score {min(own):.2f}-{max(own):.2f}")
 
+    asm_reads, _ = simulate_reads(genomes, NUM_READS, rng)
     held = rng.choice(ASM_CLASSES, HELD_OUT, replace=False)
     in_dir = base / "held_out"
     in_dir.mkdir()
@@ -930,7 +944,10 @@ def run_records(rng, card, errors):
 
     model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     batch = query.prepare_batch(assemblies[0][1], K, step=1, chunk=model.engine.chunk)
-    return launches, time_records_kernels(model.engine, batch, card, errors)
+    timings = time_records_kernels(model.engine, batch, card, errors)
+    label, contigs = assemblies[0]
+    single = json.loads((base / "species_step1" / "res_1.json").read_text(encoding="utf-8"))
+    return launches, timings, dict(model=model, reads=asm_reads, contigs=contigs, label=label, single=single)
 
 
 def run_genus_assemblies(genus_genome, genus_idx, rng, card):
@@ -1375,6 +1392,430 @@ def run_xxh3_genus(genus_genome, assemblies, card, errors):
     }
 
 
+# ---------------------------------------------------------------- sharded
+
+
+def check_sharded_kernels(rng, errors):
+    """K2 and K3 in owned-block mode equal their plain versions on every
+    block shard (2, 3 and 4 shards, padded stacks included; K3 also on its
+    global-atomic path) and the shards sum to the unsharded kernel's
+    counts; class-word slices concatenate to them; K8 equals its plain
+    version at 1, 2, 4 and 16 class words.  All exact."""
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.ops.probe_select import probe_select, probe_select_plain
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+    from xspect2_tpu_torch.parallel.sharded import cls_table_shard
+
+    dev = torch.device("cuda")
+    genome = rng.integers(0, 4, size=300_000, dtype=np.uint8)
+
+    def inputs_for(idx, step):
+        reads = rng.integers(0, 4, size=(3072, 150), dtype=np.uint8)
+        reads[rng.integers(0, 3072, 40), rng.integers(0, 150, 40)] = 255
+        records = []
+        for i in range(300):
+            n = int(K + 1 + rng.pareto(1.0) * 60) if i % 7 else 5000
+            at = int(rng.integers(0, len(genome) - min(n, 20_000)))
+            c = genome[at : at + min(n, 20_000)].copy()
+            if i % 5 == 0:
+                c[rng.integers(0, len(c), 2)] = 255
+            records.append((f"r{i}", c))
+        batch = query.prepare_batch(records, K, step=step, chunk=1 << 16)
+        max_records = query._next_pow2(max(8, batch.num_records))
+        flat = [torch.from_numpy(a).to(dev) for a in (batch.codes, batch.rec_ids, batch.valid)]
+        return torch.from_numpy(reads).to(dev), flat, max_records, int(np.diff(batch.offsets).min())
+
+    padded = 0
+    for num_classes, h in ((1, 3), (8, 2), (40, 7), (512, 3)):
+        idx = random_index(num_classes, h, rng)
+        engine = query.DeviceQueryEngine(idx, device=dev)
+        for step in (1, 3):
+            codes, flat, max_records, shortest = inputs_for(idx, step)
+            geom = engine.geometry()
+            whole2 = query.reads_query(codes, engine.table, step=step, **geom).long()
+            whole3 = query.records_query(*flat, engine.table, max_records=max_records, min_record_len=shortest, **geom)
+            for n_blk in (2, 3, 4):
+                local = -(-idx.num_blocks // n_blk)
+                padded += local * n_blk != idx.num_blocks
+                sum2, sum3, err2, err3 = torch.zeros_like(whole2), torch.zeros_like(whole3), 0, 0
+                for m in range(n_blk):
+                    table = torch.from_numpy(blk_table_shard(idx, n_blk, m).view(np.int32)).to(dev)
+                    window = dict(local_blocks=local, block_offset=m * local)
+                    got2 = query.reads_query(codes, table, step=step, **geom, **window).long()
+                    want2 = query.reads_query_plain(codes, table, step=step, **geom, **window).long()
+                    err2 = max(err2, int((got2 - want2).abs().max()))
+                    sum2 += got2
+                    want3 = query.records_query_plain(*flat, table, max_records=max_records, **geom, **window)
+                    for hint in (shortest, 10**6):  # 10**6: wide spans, the global-atomic path
+                        got3 = query.records_query(*flat, table, max_records=max_records, min_record_len=hint, **geom, **window)
+                        err3 = max(err3, int((got3 - want3).abs().max()))
+                    sum3 += got3
+                err2 = max(err2, int((sum2 - whole2).abs().max()))
+                err3 = max(err3, int((sum3 - whole3).abs().max()))
+                errors["reads_query"] = max(errors["reads_query"], err2)
+                errors["records_query"] = max(errors["records_query"], err3)
+                log(f"  owned-block kernels vs plain and vs the whole table: C={num_classes} P={idx.fields_per_word} "
+                    f"step={step} n_blk={n_blk} ({idx.num_blocks} blocks, {local} a shard): max |err| K2 {err2}, K3 {err3}, "
+                    f"hits {int(whole2.sum())} / {int(whole3.sum())}")
+        # class-word slices of the unpacked tables, concatenated
+        for n_cls in {40: (2,), 512: (2, 4, 16)}.get(num_classes, ()):
+            codes, flat, max_records, shortest = inputs_for(idx, 1)
+            geom = engine.geometry()
+            whole2 = query.reads_query(codes, engine.table, step=1, **geom).long()
+            whole3 = query.records_query(*flat, engine.table, max_records=max_records, min_record_len=shortest, **geom)
+            cw_local = idx.class_words // n_cls
+            sliced = dict(geom, class_words=cw_local, num_classes=32 * cw_local)
+            parts2, parts3 = [], []
+            for m in range(n_cls):
+                table = torch.from_numpy(cls_table_shard(idx, n_cls, m).view(np.int32)).to(dev)
+                parts2.append(query.reads_query(codes, table, step=1, **sliced).long())
+                parts3.append(query.records_query(*flat, table, max_records=max_records, min_record_len=shortest, **sliced))
+            err2 = int((torch.cat(parts2, dim=1)[:, :num_classes] - whole2).abs().max())
+            err3 = int((torch.cat(parts3, dim=1)[:, :num_classes] - whole3).abs().max())
+            errors["reads_query"] = max(errors["reads_query"], err2)
+            errors["records_query"] = max(errors["records_query"], err3)
+            log(f"  class-word slices vs the whole table: C={num_classes} n_cls={n_cls} ({cw_local} of "
+                f"{idx.class_words} words a shard): max |err| K2 {err2}, K3 {err3}")
+    require(padded > 0, "no block count of the owned-block checks needed padding")
+    require(errors["reads_query"] == 0, "reads_query disagrees in owned-block mode or on class-word slices")
+    require(errors["records_query"] == 0, "records_query disagrees in owned-block mode or on class-word slices")
+
+    for cw in (1, 2, 4, 16):
+        rpb = 128 // cw
+        t = 100_003
+        blocks = torch.from_numpy(
+            rng.integers(0, 2**32, size=(t, 128), dtype=np.uint64).astype(np.uint32).view(np.int32)).to(dev)
+        sel = rng.integers(0, 2**32, size=(t, max(1, rpb // 32)), dtype=np.uint64)
+        sel &= rng.integers(0, 2**32, size=sel.shape, dtype=np.uint64)
+        sel &= (1 << min(32, rpb)) - 1
+        sel[0] = 0  # no row selected: all-ones words
+        selbits = torch.from_numpy(sel.astype(np.uint32).view(np.int32)).to(dev)
+        got = probe_select(selbits, blocks, rows_per_block=rpb, class_words=cw)
+        want = probe_select_plain(selbits, blocks, rows_per_block=rpb, class_words=cw)
+        err = int((got.long() - want.long()).abs().max())
+        errors["probe_select"] = max(errors["probe_select"], err)
+        require(bool((got[0] == -1).all()), "probe_select: a k-mer without a selected row is not all-ones")
+        log(f"  probe_select vs plain: cw={cw} rows per block {rpb}, {t} k-mers: max |err| {err}")
+    require(errors["probe_select"] == 0, "probe_select disagrees with its plain version")
+
+
+def hand_mesh(axis, n_data, n_model):
+    """A mesh of ``n_data x n_model`` coordinates on this card without
+    process groups: only the per-coordinate steps can run on it."""
+    from xspect2_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
+
+    return Mesh({DATA_AXIS: n_data, axis: n_model}, (0, 0), {DATA_AXIS: None, axis: None}, torch.device("cuda"))
+
+
+def merge_model(clf, parts):
+    """The model-axis collective by hand: concatenate the class axis over
+    ``cls``, sum over ``blk``."""
+    if clf.model_axis == "cls":
+        return torch.cat(parts, dim=-1)
+    return torch.stack(parts).sum(dim=0, dtype=torch.int32)
+
+
+def sharded_reads_by_hand(clf, reads, reads_per_chunk):
+    """Every coordinate's reads step on this card, combined by hand:
+    int32 [rows, C_pad] on the card."""
+    rows = []
+    for d in range(clf.n_data):
+        parts = [clf._local_reads_step((d, m), reads, 1, reads_per_chunk)[0] for m in range(clf.n_model)]
+        rows.append(merge_model(clf, parts))
+    return torch.cat(rows)
+
+
+def sharded_classify_by_hand(clf, records, step=1):
+    """Every coordinate's records step on this card, combined by hand,
+    then the scores and the head as the step computes them."""
+    batches, max_records = clf._shard_batches(records, step)
+    full = [
+        merge_model(clf, [clf._local_step((d, m), batches[d], max_records) for m in range(clf.n_model)])
+        for d in range(clf.n_data)
+    ]
+    total_hits = torch.stack([f.sum(dim=0, dtype=torch.int32) for f in full]).sum(dim=0, dtype=torch.int32)
+    total_kmers = torch.tensor(sum(sum(b.num_kmers) for b in batches), dtype=torch.int32, device="cuda")
+    scores, pred = clf.score(total_hits, total_kmers)
+    return clf.assemble(torch.stack(full).cpu().numpy(), scores.cpu().numpy(), int(pred),
+                        [b.record_names for b in batches])
+
+
+def collective_bound_ms(kind: str, ranks: int, nbytes: int) -> float:
+    """The least time a collective over ``ranks`` cards could take on a
+    tensor of ``nbytes`` a rank: the bytes a rank must receive over NVLink
+    (``all_gather``: the other ranks' tensors; ``all_reduce``: twice the
+    tensor less its own share, as reduce-scatter then all-gather) at the
+    link's rate.  Computed from shapes; no collective has crossed cards."""
+    received = (ranks - 1) * nbytes if kind == "all_gather" else 2 * (ranks - 1) * nbytes // ranks
+    return received / NVLINK_BYTES_PER_S * 1e3
+
+
+def time_block_shards(fn, idx, n_blk):
+    """Device ms of ``fn(table, window)`` on each of ``n_blk`` block shards
+    of the index's table, in coordinate order."""
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+
+    local = -(-idx.num_blocks // n_blk)
+    out = []
+    for m in range(n_blk):
+        table = torch.from_numpy(blk_table_shard(idx, n_blk, m).view(np.int32)).to("cuda")
+        window = dict(local_blocks=local, block_offset=m * local)
+        out.append(cuda_ms(lambda: fn(table, window), 10))
+    return out
+
+
+def run_sharded_reads(kind, idx, reads, card, errors):
+    """The read table on 1x2, 1x4 and 2x2 (data x blk) meshes: every
+    coordinate's step for all reads, combined by hand, must equal the
+    single engine exactly; ``cls`` is refused for a field-packed table.
+    Then K2's time on one block shard beside the whole table's."""
+    from xspect2_tpu_torch.models.filter_model import _READS_PER_CHUNK
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.parallel import BlockShardedClassifier, ShardedClassifier
+
+    n = len(reads)
+    engine = query.DeviceQueryEngine(idx, device="cuda")
+    want = engine.count_hits_reads(reads, reads_per_chunk=_READS_PER_CHUNK, block=False).int()
+    try:
+        ShardedClassifier(idx, hand_mesh("cls", 1, 2))
+    except ValueError as exc:
+        log(f"  {kind}: a cls mesh is refused: {str(exc)[:60]}...")
+    else:
+        raise SmokeFailure(f"{kind}: a field-packed table was sharded by class words")
+    for n_data, n_blk in ((1, 2), (1, 4), (2, 2)):
+        clf = BlockShardedClassifier(idx, hand_mesh("blk", n_data, n_blk))
+        t0 = time.time()
+        got = sharded_reads_by_hand(clf, reads, _READS_PER_CHUNK)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        err = int((got[:n] - want[:n]).abs().max())
+        require(err == 0 and int(got[n:].sum()) == 0, f"{kind}: the {n_data}x{n_blk} blk mesh differs from the single engine")
+        part_bytes = got.shape[0] // n_data * got.shape[1] * 4  # one rank's int32 partial counts
+        log(f"  {kind} reads on a {n_data}x{n_blk} (data x blk) mesh, {clf.local_blocks} of {idx.num_blocks} blocks "
+            f"({clf.local_blocks * idx.class_words * idx.rows_per_block * 4 / 1e6:.1f} MB) a shard: {n} reads through "
+            f"all {n_data * n_blk} coordinates in {secs:.2f} s, max |err| vs the single engine 0, hits {int(got.sum())}; "
+            f"the all_reduce over blk ({part_bytes} B a rank) could not take less than "
+            f"{collective_bound_ms('all_reduce', n_blk, part_bytes):.4f} ms between cards (not run: one card)")
+        del clf, got
+    codes = query.unpack_2bit(*engine.upload_wire(reads, _READS_PER_CHUNK), READ_LEN)
+    geom = dict(step=1, **engine.geometry())
+    whole_ms = cuda_ms(lambda: query.reads_query(codes, engine.table, **geom), 10)
+    out = {}
+    for n_blk in (2, 4):
+        ms = time_block_shards(lambda table, window: query.reads_query(codes, table, **geom, **window), idx, n_blk)
+        log(f"  timing [{card}] reads_query on one of {n_blk} block shards of the {kind} table ({len(codes)}x{READ_LEN}): "
+            f"{', '.join(f'{v:.4f}' for v in ms)} ms a shard, the whole table {whole_ms:.4f} ms")
+        out[n_blk] = ms
+    return {"n_blk": 4, "ms": sum(out[4]) / 4, "max_ms": max(out[4]), "unsharded_ms": whole_ms,
+            "n_blk_2_ms": sum(out[2]) / 2}
+
+
+def run_sharded_records(asm, card, errors):
+    """The 40-class table: 400,000 reads on 1x2 cls, 1x2 blk and 1x4 blk
+    meshes, and one 4 Mbp assembly through the records step on 2x2 blk and
+    2x2 cls meshes with the SVM head, every coordinate in turn, combined
+    by hand: counts equal the single engine's, per-contig hits and total
+    scores equal the single-device model's, the prediction is the source
+    class.  Then K3's time on one block shard and the head's time."""
+    from xspect2_tpu_torch.models.filter_model import _READS_PER_CHUNK
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.parallel import BlockShardedClassifier, ShardedClassifier
+
+    model, reads, contigs, single = asm["model"], asm["reads"], asm["contigs"], asm["single"]
+    idx, engine = model.index, model.engine
+    names = idx.class_names
+    require(list(names) == sorted(names), "the 40-class index does not keep its classes sorted")
+    head = model._get_svm(None)
+    n = len(reads)
+    want = engine.count_hits_reads(reads, reads_per_chunk=_READS_PER_CHUNK, block=False).int()
+    for cls, axis, n_data, n_model in (
+        (ShardedClassifier, "cls", 1, 2), (BlockShardedClassifier, "blk", 1, 2), (BlockShardedClassifier, "blk", 1, 4),
+    ):
+        clf = cls(idx, hand_mesh(axis, n_data, n_model))
+        t0 = time.time()
+        got = sharded_reads_by_hand(clf, reads, _READS_PER_CHUNK)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        err = int((got[:n, : idx.num_classes] - want[:n]).abs().max())
+        require(err == 0 and int(got[n:].sum()) == 0 and int(got[:, idx.num_classes:].sum()) == 0,
+                f"the 40-class {n_data}x{n_model} {axis} mesh differs from the single engine")
+        if axis == "cls":  # each rank holds its class words of every read
+            kind, part_bytes = "all_gather", got.shape[0] // n_data * (got.shape[1] // n_model) * 4
+        else:
+            kind, part_bytes = "all_reduce", got.shape[0] // n_data * got.shape[1] * 4
+        log(f"  40-class reads on a {n_data}x{n_model} (data x {axis}) mesh, {clf.table.numel() * 4 / 1e6:.1f} MB a shard: "
+            f"{n} reads through all {n_data * n_model} coordinates in {secs:.2f} s, max |err| vs the single engine 0, "
+            f"hits {int(got.sum())}; the {kind} over {axis} ({part_bytes} B a rank) could not take less than "
+            f"{collective_bound_ms(kind, n_model, part_bytes):.4f} ms between cards (not run: one card)")
+        del clf, got
+    del want
+
+    for cls, axis in ((BlockShardedClassifier, "blk"), (ShardedClassifier, "cls")):
+        clf = cls(idx, hand_mesh(axis, 2, 2), svm_head=head)
+        t0 = time.time()
+        per_record, totals, prediction = sharded_classify_by_hand(clf, contigs)
+        secs = time.time() - t0
+        require(list(single["hits"]) == [cid for cid, _ in contigs] and set(per_record) == set(single["hits"]),
+                f"2x2 {axis}: the contigs differ from the single-device result")
+        for cid, _ in contigs:
+            require(per_record[cid] == {c: single["hits"][cid][c] for c in names},
+                    f"2x2 {axis}: the hits of {cid} differ from the single-device model's")
+        worst = max(abs(totals[c] - single["scores"]["total"][c]) for c in names)
+        require(worst < 1e-6, f"2x2 {axis}: a total score differs from the single-device model's by {worst}")
+        require(prediction == single["prediction"] == asm["label"], f"2x2 {axis}: predicted {prediction}, source {asm['label']}")
+        log(f"  one 4 Mbp assembly ({len(contigs)} contigs) on a 2x2 (data x {axis}) mesh with the SVM head, all 4 "
+            f"coordinates in {secs:.2f} s: per-contig hits equal the single-device model's, total scores within "
+            f"{worst:.1e} (float32 against float64), prediction {str(prediction)!r} is the source class")
+        del clf
+
+    batch = query.prepare_batch(contigs, K, step=1, chunk=engine.chunk)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    codes, rec, valid = query.restore_records_wire(
+        *engine.upload_records_wire(batch, max_records), batch.num_positions, k=K, step=1)
+    geom = dict(max_records=max_records, min_record_len=int(np.diff(batch.offsets).min()), **engine.geometry())
+    whole_ms = cuda_ms(lambda: query.records_query(codes, rec, valid, engine.table, **geom), 10)
+    out = {}
+    for n_blk in (2, 4):
+        ms = time_block_shards(
+            lambda table, window: query.records_query(codes, rec, valid, table, **geom, **window), idx, n_blk)
+        log(f"  timing [{card}] records_query on one of {n_blk} block shards of the 40-class table (one 4 Mbp assembly): "
+            f"{', '.join(f'{v:.4f}' for v in ms)} ms a shard, the whole table {whole_ms:.4f} ms")
+        out[n_blk] = ms
+    x = torch.tensor([[single["scores"]["total"][c] for c in names]], dtype=torch.float32, device="cuda")
+    calls = SVMHead.calls
+    head_ms = cuda_ms(lambda: head.predict_indices(x), 20)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    int(head.predict_indices(x)[0])
+    host_ms = (time.time() - t0) * 1e3
+    SVMHead.calls = calls  # timing is no prediction of the main path
+    # the head's bound: its parameters and the scores read once, the index written
+    n_sv = int(head.support_vectors.shape[0])
+    head_bytes = sum(b.numel() * b.element_size() for b in head.buffers()) + x.numel() * 4 + 8
+    head_flops = 3 * n_sv * x.shape[1] + 4 * n_sv * (len(head.classes) - 1) + 4 * len(head.pairs) * len(head.classes)
+    head_bound = max(head_bytes / HBM_BYTES_PER_S, head_flops / INT_OPS_PER_S) * 1e3
+    head_timing = {"ms_per_call": head_ms, "host_ms_per_call": host_ms, "bound_ms": head_bound,
+                   "classes": len(head.classes), "pairs": len(head.pairs), "support_vectors": n_sv}
+    log(f"  timing [{card}] SVMHead.predict_indices ({len(head.classes)} classes, {len(head.pairs)} pairs, "
+        f"{n_sv} support vectors, float64 torch ops): {head_ms:.4f} ms a call between CUDA events, {host_ms:.4f} ms "
+        f"on the host clock for one call with its fetch; bound {head_bound:.6f} ms ({head_bytes} B once, "
+        f"~{head_flops} operations at the 67 T/s rate)")
+    return {"n_blk": 4, "ms": sum(out[4]) / 4, "max_ms": max(out[4]), "unsharded_ms": whole_ms,
+            "n_blk_2_ms": sum(out[2]) / 2}, head_timing
+
+
+def run_nccl_world_of_one(asm, card):
+    """``distributed.initialize`` with NCCL on this card at world size 1,
+    then both classifiers through their public methods on a 1x1 mesh:
+    every collective runs through NCCL, the counts equal the engine's and
+    the classification the single-device model's.  Returns the kernel
+    launches of these runs."""
+    import torch.distributed as dist
+
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.parallel import (
+        BlockShardedClassifier, ShardedClassifier, distributed, make_block_mesh, make_mesh,
+    )
+
+    model, contigs, single = asm["model"], asm["contigs"], asm["single"]
+    idx = model.index
+    reads = asm["reads"][:100_000]
+    want = model.engine.count_hits_reads(reads)
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store = WORK / "nccl_store"
+    t0 = time.time()
+    topo = distributed.initialize(f"file://{store}", num_processes=1, process_id=0, timeout_s=120)
+    require(dist.get_backend() == "nccl" and topo["process_count"] == 1, f"not an NCCL world of one: {topo}")
+    log(f"  NCCL world of one on this card in {time.time() - t0:.2f} s: {topo}")
+    calls = SVMHead.calls
+    reset_launches()
+    try:
+        for cls, make in ((ShardedClassifier, make_mesh), (BlockShardedClassifier, make_block_mesh)):
+            mesh = make()
+            require(mesh.coords == (0, 0) and all(g is not None for g in mesh.groups.values()),
+                    "the 1x1 mesh has no NCCL process groups")
+            # replicate_out=True: the data-axis all_gather runs as well
+            clf = cls(idx, mesh, svm_head=model._get_svm(None), replicate_out=True)
+            t0 = time.time()
+            got = clf.count_hits_reads(reads, reads_per_chunk=4096)
+            local = clf.count_hits_reads_local(reads, reads_per_chunk=4096)
+            per_record, totals, prediction = clf.classify(contigs)
+            secs = time.time() - t0
+            require(np.array_equal(got, want) and np.array_equal(local, want),
+                    f"{cls.__name__} at NCCL world size 1 differs from the engine")
+            require(all(per_record[cid] == {c: single["hits"][cid][c] for c in idx.class_names} for cid, _ in contigs),
+                    f"{cls.__name__}.classify at NCCL world size 1 differs from the single-device model")
+            require(max(abs(totals[c] - single["scores"]["total"][c]) for c in idx.class_names) < 1e-6
+                    and prediction == asm["label"], f"{cls.__name__}.classify: wrong scores or prediction")
+            log(f"  {cls.__name__} on a 1x1 mesh, NCCL collectives: count_hits_reads and count_hits_reads_local "
+                f"({len(reads)} reads) equal the engine, classify (one 4 Mbp assembly) equals the single-device "
+                f"model and predicts {str(prediction)!r}; {secs:.2f} s")
+            del clf
+    finally:
+        dist.destroy_process_group()
+    launches = read_launches()
+    log(f"  sharded public methods: kernel launches {launches}; SVM head calls {SVMHead.calls - calls}")
+    require(all(launches[name] > 0 for name in ("unpack_2bit", "reads_query", "records_wire", "records_query")),
+            "a kernel of the sharded path was not launched")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+def run_microbench(card, errors):
+    """The probe-select microbenchmark at its default shape (a 50 MB table,
+    8 classes, 7 probes, 65,536 reads in chunks of 8,192), then K8 at one
+    chunk's shape: time, bound, plain time."""
+    from xspect2_tpu_torch.core.hashing import block_words_fieldbase_torch
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.ops.probe_select import probe_select, probe_select_plain
+    from xspect2_tpu_torch.tools import microbench_probe as mb
+
+    reset_launches()
+    res = mb.run()
+    launches = read_launches()
+    require(res["equal"], "the microbenchmark's two formulations disagree")
+    require(launches["probe_select"] > 0 and launches["reads_query"] > 0, "the microbenchmark did not launch K8 and K2")
+    log(f"  microbenchmark [{card}]: reads_query {res['reads_query_reads_per_s']:.0f} reads/s, gather + probe_select "
+        f"{res['probe_select_reads_per_s']:.0f} reads/s; launches {launches}")
+
+    geom = mb.geometry(8, 7, 50.0)
+    rpb, cw = geom["rows_per_block"], geom["class_words"]
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(
+        rng.integers(0, 2**32, size=(geom["num_blocks"], 128), dtype=np.uint64).astype(np.uint32).view(np.int32)).to("cuda")
+    reads = torch.from_numpy(rng.integers(0, 4, size=(8192, READ_LEN), dtype=np.uint8)).to("cuda")
+    hi, lo, _ = query._canonical_windows_plain(reads.long(), K, READ_LEN - K + 1)
+    block, rows, _ = block_words_fieldbase_torch(hi.reshape(-1), lo.reshape(-1), geom["num_blocks"], rpb, 7)
+    selbits = mb.pack_row_mask(rows, rpb)
+    blocks = table.index_select(0, block)
+    del hi, lo, rows
+    t = blocks.shape[0]
+    got = probe_select(selbits, blocks, rows_per_block=rpb, class_words=cw)
+    want = probe_select_plain(selbits, blocks, rows_per_block=rpb, class_words=cw)
+    errors["probe_select"] = max(errors["probe_select"], int((got.long() - want.long()).abs().max()))
+    require(errors["probe_select"] == 0, "probe_select disagrees with its plain version at the microbenchmark's shape")
+    del want
+    k8_ms = cuda_ms(lambda: probe_select(selbits, blocks, rows_per_block=rpb, class_words=cw), 20)
+    k8_plain = cuda_ms(lambda: probe_select_plain(selbits, blocks, rows_per_block=rpb, class_words=cw), 2)
+    gather_ms = cuda_ms(lambda: table.index_select(0, block), 10)
+    k8_bytes = t * (512 + 4 * selbits.shape[1] + 4 * cw)
+    k8_bound = k8_bytes / HBM_BYTES_PER_S * 1e3
+    k8_ops_ms = t * 128 * 3 / INT_OPS_PER_S * 1e3  # estimated: select, AND and shuffle per word
+    log(f"  timing [{card}] probe_select ([{t}, 128] blocks, {selbits.shape[1]} mask words, cw={cw}; one chunk of 8,192 "
+        f"reads): {k8_ms:.4f} ms, bound {max(k8_bound, k8_ops_ms):.4f} ms (bytes {k8_bound:.4f}: {k8_bytes} B once; "
+        f"operations {k8_ops_ms:.4f}), plain {k8_plain:.4f} ms; the gather that feeds it (index_select) {gather_ms:.4f} ms")
+    return launches, {
+        "probe_select": dict(
+            ms=k8_ms, plain_ms=k8_plain, bound_ms=max(k8_bound, k8_ops_ms),
+            bound_by="bytes" if k8_bound >= k8_ops_ms else "operations", library_ms=None,
+        ),
+    }
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1405,6 +1846,7 @@ def main() -> int:
     check_kernels(rng, errors)
     check_records_kernels(rng, errors)
     check_multi_kernels(rng, errors)
+    check_sharded_kernels(rng, errors)
 
     log("phase 3: species reads, 8 classes x 4 Mbp")
     genomes = rng.integers(0, 4, size=(8, 4_000_000), dtype=np.uint8)
@@ -1415,6 +1857,8 @@ def main() -> int:
     )
     sp_launches, sp_reads = run_path("species", species_idx, genomes, rng, card)
     timings = time_kernels(species_idx, sp_reads, card, errors)
+    log("phase 3b: species reads on (data x blk) meshes, every shard in turn on this card")
+    k2_sharded = run_sharded_reads("species", species_idx, sp_reads, card, errors)
     del sp_reads
 
     log("phase 4: genus reads and genus assemblies, 1 class x 32 Mbp")
@@ -1422,6 +1866,8 @@ def main() -> int:
     genus_idx = build_index(["smoke"], genus_genome)
     ge_launches, ge_reads = run_path("genus", genus_idx, genus_genome, rng, card)
     time_kernels(genus_idx, ge_reads, card, errors)
+    log("phase 4b: genus reads on (data x blk) meshes, every shard in turn on this card")
+    run_sharded_reads("genus", genus_idx, ge_reads, card, errors)
     del ge_reads
     ga_launches, genus_assemblies = run_genus_assemblies(genus_genome, genus_idx, rng, card)
     del genus_idx
@@ -1431,7 +1877,12 @@ def main() -> int:
     del genomes, species_idx
 
     log("phase 6: records, 40-class x 4 Mbp SVM species model: fit, then 20 assemblies at steps 1 and 4")
-    rec_launches, rec_timings = run_records(rng, card, errors)
+    rec_launches, rec_timings, asm = run_records(rng, card, errors)
+    log("phase 6b: the 40-class table on (data x cls) and (data x blk) meshes, every shard in turn on this card")
+    k3_sharded, head_timing = run_sharded_records(asm, card, errors)
+    log("phase 6c: both sharded classifiers through their public methods, NCCL at world size 1")
+    nccl_launches = run_nccl_world_of_one(asm, card)
+    del asm
 
     log(f"phase 7: MLST, {MLST_LOCI} loci x {MLST_ALLELES} alleles x {ALLELE_LEN} bp, {MLST_GENOMES} genomes of "
         f"{GENOME_LEN} bp (depth cut: the genome count) and {MLST_SHORT} short records")
@@ -1441,8 +1892,14 @@ def main() -> int:
     x_launches, x_timings = run_xxh3_genus(genus_genome, genus_assemblies, card, errors)
     del genus_genome, genus_assemblies
 
-    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings}
-    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, mlst_launches, x_launches)
+    log("phase 9: the probe-select microbenchmark at its default shape")
+    p_launches, p_timings = run_microbench(card, errors)
+
+    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings}
+    all_timings["reads_query"]["block_sharded"] = k2_sharded
+    all_timings["records_query"]["block_sharded"] = k3_sharded
+    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, mlst_launches,
+                    x_launches, p_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -1450,12 +1907,17 @@ def main() -> int:
             "launches": sum(run[name] for run in all_launches),
             "max_abs_err": errors[name], "library_ms": None, **all_timings[name],
         })
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+
+    log(f"svm head [{card}]: {json.dumps(dict(head_timing, calls=SVMHead.calls))} (calls: every prediction of the run)")
     log(
         f"kernels [{card}]: launches summed over every main-path run (species and genus reads, "
-        f"genus assemblies, the 40-class fit and both assembly runs, classify_mlst and the three "
-        f"MLST predict runs, the xxh3 genus run); unpack_2bit and reads_query timed at the species "
-        f"reads shape, records_wire and records_query at one 4 Mbp assembly, multi_records_query "
-        f"and reduce_record_counts at one group of 4 genomes, bloom_count at the longest contig; "
+        f"genus assemblies, the 40-class fit and both assembly runs, the sharded classifiers' public "
+        f"methods at NCCL world size 1, classify_mlst and the three MLST predict runs, the xxh3 genus "
+        f"run, the microbenchmark); unpack_2bit and reads_query timed at the species reads shape, "
+        f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
+        f"at the same shapes), multi_records_query and reduce_record_counts at one group of 4 genomes, "
+        f"bloom_count at the longest contig, probe_select at one chunk of 8,192 reads; "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

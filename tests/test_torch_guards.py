@@ -43,7 +43,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(MODULES) >= 30
     for module in (
         "models.mlst_model", "core.compat", "core.xxh3", "handlers.http", "handlers.pubmlst",
-        "filter_sequences", "ops.bloom",
+        "filter_sequences", "ops.bloom", "ops.probe_select", "parallel", "parallel.mesh",
+        "parallel.distributed", "parallel.sharded", "parallel.block_sharded",
+        "tools.microbench_probe",
     ):
         assert f"xspect2_tpu_torch.{module}" in MODULES
 
@@ -74,9 +76,10 @@ def test_port_sources_name_no_jax_import():
     sources = [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
     hits = [str(p) for p in sources if pattern.search(p.read_text(encoding="utf-8"))]
     assert hits == []
-    assert {"mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py"} <= {
-        p.name for p in sources
-    }
+    assert {
+        "mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py", "mesh.py",
+        "distributed.py", "sharded.py", "block_sharded.py", "probe_select.py", "microbench_probe.py",
+    } <= {p.name for p in sources}
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp_path):
@@ -107,6 +110,37 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp
     with pytest.raises(RuntimeError):
         xspect2_tpu_torch.resolve_device("cuda")
     assert xspect2_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_sharded_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
+    from xspect2_tpu_torch import parallel
+    from xspect2_tpu_torch.parallel import distributed
+    from xspect2_tpu_torch.parallel.mesh import BLK_AXIS, CLS_AXIS, DATA_AXIS, Mesh
+    from xspect2_tpu_torch.tools import microbench_probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    idx = _small_model(tmp_path).index
+
+    def cuda_mesh(axis):
+        return Mesh({DATA_AXIS: 1, axis: 1}, (0, 0), {DATA_AXIS: None, axis: None}, torch.device("cuda"))
+
+    for build in (
+        parallel.make_mesh,
+        parallel.make_block_mesh,
+        distributed.initialize,
+        lambda: parallel.ShardedClassifier(idx, cuda_mesh(CLS_AXIS)),
+        lambda: parallel.BlockShardedClassifier(idx, cuda_mesh(BLK_AXIS)),
+        lambda: microbench_probe.run(table_mb=0.1, reads=8, reads_per_chunk=8, iters=1),
+        lambda: microbench_probe.main(["--table-mb", "0.1", "--reads", "8", "--reads-per-chunk", "8"]),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    mesh = parallel.make_block_mesh(device="cpu")
+    assert mesh.device.type == "cpu" and parallel.make_mesh(device="cpu").size == 1
+    assert distributed.initialize(device="cpu")["process_count"] == 1
+    clf = parallel.BlockShardedClassifier(idx, mesh)
+    hits = clf.count_hits_reads(np.zeros((3, 40), dtype=np.uint8), reads_per_chunk=4)
+    assert hits.shape == (3, 2) and clf.table.device.type == "cpu"
 
 
 def _small_model(tmp_path):
@@ -162,6 +196,7 @@ def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
     changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
     assert changed == {"reads_query", "records_query", "multi_records_query"}
+    assert "probe_select" in _kernels.SIGNATURES
     before = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
     header = csrc / "records_block.cuh"
     header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")

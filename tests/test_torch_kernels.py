@@ -276,3 +276,113 @@ def test_bloom_count_kernel_matches_plain_and_host(cuda_device, n):
     # a position past the filter is a miss on both
     pos[0, 0] = -1
     assert int(bloom.bloom_count(words, pos, mask)) == int(bloom.bloom_count_plain(words, pos, mask))
+
+
+# ------------------------------------------------------------------ owned-block mode, K8
+
+
+def _block_shards(idx, n_blk, device):
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+
+    local_blocks = -(-idx.num_blocks // n_blk)
+    tables = [
+        torch.from_numpy(blk_table_shard(idx, n_blk, m).view(np.int32)).to(device) for m in range(n_blk)
+    ]
+    return local_blocks, tables
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("n_blk,step", [(2, 1), (3, 3), (4, 1)])
+def test_read_query_kernel_owned_block_mode_matches_plain_and_sums_to_the_whole(cuda_device, name, n_blk, step):
+    """K2 on each block shard equals its plain version, and the shards'
+    partial counts sum to the unsharded kernel's."""
+    rng = np.random.default_rng(n_blk + step)
+    idx, genomes = _index(*GEOMETRIES[name], rng)
+    reads = _reads(rng, genomes, 500, 150)
+    engine = query.DeviceQueryEngine(idx, device=cuda_device)
+    codes = torch.from_numpy(reads).to(cuda_device)
+    geom = dict(step=step, **engine.geometry())
+    whole = query.reads_query(codes, engine.table, **geom).long()
+    local_blocks, tables = _block_shards(idx, n_blk, cuda_device)
+    total = torch.zeros_like(whole)
+    for m, table in enumerate(tables):
+        window = dict(local_blocks=local_blocks, block_offset=m * local_blocks)
+        before = query.reads_query.launches
+        got = query.reads_query(codes, table, **geom, **window).long()
+        assert query.reads_query.launches == before + 1
+        want = query.reads_query_plain(codes, table, **geom, **window).long()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        total += got
+    torch.testing.assert_close(total, whole, rtol=0, atol=0)
+    assert int(whole.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("n_blk,step,hint", [(2, 1, 22), (3, 3, 22), (4, 1, 10**6)])
+def test_records_query_kernel_owned_block_mode_matches_plain_and_sums_to_the_whole(
+    cuda_device, name, n_blk, step, hint
+):
+    """K3 on each block shard equals its plain version on the shared and
+    (with a wrong record-length hint) the global-atomic path, and the
+    shards' partial counts sum to the unsharded kernel's."""
+    rng = np.random.default_rng(n_blk * 10 + step)
+    idx, genomes = _index(*GEOMETRIES[name], rng)
+    records = _records(rng, genomes, 60, 22, 1200)
+    engine = query.DeviceQueryEngine(idx, device=cuda_device, chunk=8192)
+    batch = query.prepare_batch(records, 21, step=step, chunk=engine.chunk)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    geom = dict(max_records=max_records, **engine.geometry())
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid)]
+    whole = query.records_query(*inputs, engine.table, min_record_len=22, **geom)
+    local_blocks, tables = _block_shards(idx, n_blk, cuda_device)
+    total = torch.zeros_like(whole)
+    for m, table in enumerate(tables):
+        window = dict(local_blocks=local_blocks, block_offset=m * local_blocks)
+        got = query.records_query(*inputs, table, min_record_len=hint, **geom, **window)
+        want = query.records_query_plain(*inputs, table, **geom, **window)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        total += got
+    torch.testing.assert_close(total, whole, rtol=0, atol=0)
+    assert int(whole.sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("class_words", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("num_kmers", [1, 13, 4099])
+def test_probe_select_kernel_matches_plain(cuda_device, class_words, num_kmers):
+    from xspect2_tpu_torch.ops.probe_select import probe_select, probe_select_plain
+
+    rng = np.random.default_rng(class_words * 100 + num_kmers)
+    rpb = 128 // class_words
+    blocks = torch.from_numpy(
+        rng.integers(0, 2**32, size=(num_kmers, 128), dtype=np.uint64).astype(np.uint32).view(np.int32)
+    ).to(cuda_device)
+    sel = rng.integers(0, 2**32, size=(num_kmers, max(1, rpb // 32)), dtype=np.uint64)
+    sel &= rng.integers(0, 2**32, size=sel.shape, dtype=np.uint64)  # about a quarter of the rows
+    if rpb < 32:
+        sel &= (1 << rpb) - 1
+    sel[0] = 0  # no row selected: all-ones words
+    selbits = torch.from_numpy(sel.astype(np.uint32).view(np.int32)).to(cuda_device)
+    before = probe_select.launches
+    got = probe_select(selbits, blocks, rows_per_block=rpb, class_words=class_words)
+    assert probe_select.launches == before + 1
+    want = probe_select_plain(selbits, blocks, rows_per_block=rpb, class_words=class_words)
+    assert got.shape == (num_kmers, class_words) and got.dtype == torch.int32
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool((got[0] == -1).all())
+    with pytest.raises(ValueError):
+        probe_select(selbits, blocks, rows_per_block=rpb, class_words=class_words * 2)
+
+
+@pytest.mark.cuda
+def test_microbench_probe_pipeline_equals_reads_query_on_the_card(cuda_device, capsys):
+    from xspect2_tpu_torch.ops.probe_select import probe_select
+    from xspect2_tpu_torch.tools import microbench_probe
+
+    before = probe_select.launches
+    res = microbench_probe.run(table_mb=2, classes=40, num_hashes=7, reads=512, reads_per_chunk=128,
+                               iters=1, device=cuda_device)
+    assert res["equal"] and "probe_select == reads_query: True" in capsys.readouterr().out
+    assert probe_select.launches == before + 2 * 4  # a warm-up and one timed pass of 4 chunks

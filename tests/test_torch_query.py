@@ -196,3 +196,56 @@ def test_upload_wire_is_the_padded_packed_wire(indices):
     for g, w in zip(wire, want):
         np.testing.assert_array_equal(g.numpy(), w)
 
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("n_blk,step", [(2, 1), (3, 2), (4, 1)])
+def test_owned_block_read_query_matches_the_jax_block_sharded_body(indices, name, n_blk, step):
+    """``reads_query`` with ``local_blocks``/``block_offset`` on each block
+    shard equals the JAX package's read query body in its block-sharded
+    mode (run on the CPU), and the shards sum to the unsharded counts."""
+    import jax.numpy as jnp
+
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+
+    jidx, idx, genomes = indices[name]
+    reads = _reads(np.random.default_rng(n_blk), genomes, 16, 150)
+    local_blocks = -(-idx.num_blocks // n_blk)
+    engine = query.DeviceQueryEngine(idx, device="cpu")
+    geom = engine.geometry()
+    body = jax_query.make_reads_query_body(
+        read_len=150, k=idx.k, num_hashes=idx.num_hashes, rows_per_block=idx.rows_per_block,
+        class_words=idx.class_words, num_classes=idx.num_classes, step=step, reads_per_chunk=8,
+        fields_per_word=idx.fields_per_word, local_blocks=local_blocks,
+    )
+    total = np.zeros((16, idx.num_classes), dtype=np.int64)
+    for m in range(n_blk):
+        shard = blk_table_shard(idx, n_blk, m)
+        want = np.asarray(body(jnp.asarray(shard), jnp.asarray(reads), int(idx.num_blocks),
+                               jnp.int32(m * local_blocks)))
+        got = query.reads_query(
+            torch.from_numpy(reads), torch.from_numpy(shard.view(np.int32)), step=step, **geom,
+            local_blocks=local_blocks, block_offset=m * local_blocks,
+        ).long().numpy()
+        np.testing.assert_array_equal(got, want)
+        total += got
+    np.testing.assert_array_equal(total, engine.count_hits_reads(reads, step=step, reads_per_chunk=8))
+    assert total.sum() > 0
+
+
+def test_owned_block_mode_refuses_a_bad_window(indices):
+    _, idx, _ = indices["c40_cw2_h7"]
+    engine = query.DeviceQueryEngine(idx, device="cpu")
+    geom = engine.geometry()
+    codes = torch.zeros((4, 150), dtype=torch.uint8)
+    half = -(-idx.num_blocks // 2)
+    shard = engine.table[:half].contiguous()
+    query.reads_query(codes, shard, step=1, **geom, local_blocks=half, block_offset=half)
+    with pytest.raises(ValueError, match="table shape"):  # the whole table is not a shard
+        query.reads_query(codes, engine.table, step=1, **geom, local_blocks=half)
+    with pytest.raises(ValueError, match="block_offset"):
+        query.reads_query(codes, shard, step=1, **geom, local_blocks=half, block_offset=-1)
+    with pytest.raises(ValueError, match="block_offset"):
+        query.reads_query(codes, shard, step=1, **geom, local_blocks=half, block_offset=1 << 31)
+    with pytest.raises(ValueError, match="needs local_blocks"):
+        query.reads_query(codes, engine.table, step=1, **geom, block_offset=half)

@@ -377,3 +377,43 @@ def test_calculate_hits_and_count_kmers_match(session_data_root):
         model.predict(["not a record"])
     with pytest.raises(ValueError, match="No sequences found"):
         model.predict([])
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("n_blk,step", [(2, 1), (3, 3), (4, 1)])
+def test_owned_block_records_query_matches_the_jax_block_sharded_body(indices, name, n_blk, step):
+    """``records_query`` with ``local_blocks``/``block_offset`` on each
+    block shard equals the JAX package's query body in its block-sharded
+    mode (run on the CPU), and the shards sum to the unsharded counts."""
+    import jax.numpy as jnp
+
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+
+    jidx, idx, genomes = indices[name]
+    records = _records(np.random.default_rng(n_blk + step), genomes, 9, len(genomes[0]))
+    batch = query.prepare_batch(records, K, step=step, chunk=CHUNK)
+    max_records = 16
+    local_blocks = -(-idx.num_blocks // n_blk)
+    engine = query.DeviceQueryEngine(idx, device="cpu", chunk=CHUNK)
+    body = jax_query.make_query_body(
+        k=K, num_hashes=idx.num_hashes, rows_per_block=idx.rows_per_block,
+        class_words=idx.class_words, num_classes=idx.num_classes, chunk=CHUNK,
+        num_chunks=batch.num_positions // CHUNK, max_records=max_records,
+        fields_per_word=idx.fields_per_word, local_blocks=local_blocks,
+    )
+    inputs = [torch.from_numpy(a) for a in (batch.codes, batch.rec_ids, batch.valid)]
+    total = np.zeros((max_records, idx.num_classes), dtype=np.int64)
+    for m in range(n_blk):
+        shard = blk_table_shard(idx, n_blk, m)
+        want = np.asarray(body(
+            jnp.asarray(shard), jnp.asarray(batch.codes), jnp.asarray(batch.rec_ids),
+            jnp.asarray(batch.valid), int(idx.num_blocks), jnp.int32(m * local_blocks),
+        ))
+        got = query.records_query(
+            *inputs, torch.from_numpy(shard.view(np.int32)), max_records=max_records,
+            **engine.geometry(), local_blocks=local_blocks, block_offset=m * local_blocks,
+        ).numpy()
+        np.testing.assert_array_equal(got, want)
+        total += got
+    np.testing.assert_array_equal(total[: len(records)], _host_counts(idx, records, step))
+    assert total.sum() > 0

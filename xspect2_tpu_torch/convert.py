@@ -1,5 +1,5 @@
-"""Carry a JAX package's index, filter, MLST model and SVM head across
-as numpy arrays.
+"""Carry a JAX package's index, its table shards, filter, MLST model and
+SVM head across as numpy arrays.
 
 The two packages share their on-disk formats, so a saved model loads in
 either.  These functions take the in-memory state instead: an index's
@@ -11,16 +11,31 @@ SVM head.
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.models.mlst_model import ProbabilisticFilterMlstSchemeModel
 from xspect2_tpu_torch.models.svm_head import SVMHead
+from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+from xspect2_tpu_torch.parallel.sharded import cls_table_shard
 
 
 def index_from_arrays(meta: dict, table: np.ndarray) -> BlockedBitSlicedIndex:
     """The port's index from ``BlockedBitSlicedIndex.meta_dict()`` and ``.table``."""
     return BlockedBitSlicedIndex.from_meta(meta, np.array(table, dtype=np.uint32))
+
+
+def table_shards(meta: dict, table: np.ndarray, axis: str, n_shards: int) -> list[torch.Tensor]:
+    """The ``n_shards`` table shards of an index along the ``"cls"`` or
+    ``"blk"`` mesh axis, in coordinate order, as the int32 tensors (uint32
+    bits) the sharded classifiers query: [num_blocks, cw_local * rows]
+    for ``cls``, [local_blocks, class_words * rows] for ``blk``."""
+    if axis not in ("cls", "blk"):
+        raise ValueError(f"unknown mesh axis {axis!r}: expected 'cls' or 'blk'")
+    index = index_from_arrays(meta, table)
+    cut = cls_table_shard if axis == "cls" else blk_table_shard
+    return [torch.from_numpy(cut(index, n_shards, c).view(np.int32)) for c in range(n_shards)]
 
 
 def bloom_filter_from_arrays(meta: dict, words: np.ndarray, device=None) -> XXH3BloomFilter:

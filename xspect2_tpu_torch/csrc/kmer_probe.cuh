@@ -10,6 +10,13 @@
 // (b+i*c)&(rpb-1) of each class word over i<h; P>1 ANDs the probes of
 // each slot s<min(h,P), rotates the slot's word right by
 // ((g+s)&(P-1))*fb and masks the result to fb = 32/P bits.
+//
+// Owned-block mode (local_blocks > 0): the table pointer addresses only
+// the local_blocks blocks that start at block_offset of the whole block
+// stack, one shard of xspect2_tpu/parallel/block_sharded.py.  The hash
+// still takes a % num_blocks with the whole stack's block count; a k-mer
+// whose block lies outside the window counts nothing and reads nothing,
+// so the counts of all shards sum to the unsharded counts.
 
 #pragma once
 
@@ -26,6 +33,8 @@ struct ProbeGeom {
   int num_hashes;
   int fields_per_word;
   int num_classes;
+  uint32_t block_offset;  // first block of the table's window
+  uint32_t local_blocks;  // blocks in the window; 0 = the whole stack
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -90,9 +99,14 @@ __device__ __forceinline__ void probe_and_count(const uint32_t* __restrict__ tab
   const uint32_t b = fmix32(v ^ rotl32(u, 13) ^ 0x27D4EB2Fu);
   const uint32_t c = fmix32((u + v) ^ 0x165667B1u) | 1u;
 
+  uint32_t block = a % g.num_blocks;
+  if (g.local_blocks) {
+    // unsigned: a block below the window wraps far above local_blocks
+    block -= g.block_offset;
+    if (block >= g.local_blocks) return;
+  }
   const uint32_t row_mask = uint32_t(g.rows_per_block - 1);
-  const uint32_t* blk =
-      table + int64_t(a % g.num_blocks) * (int64_t(g.class_words) * g.rows_per_block);
+  const uint32_t* blk = table + int64_t(block) * (int64_t(g.class_words) * g.rows_per_block);
   const int P = g.fields_per_word;
   if (P == 1) {
     for (int wd = 0; wd < g.class_words; ++wd) {

@@ -95,8 +95,9 @@ extern "C" int xs_multi_records_query(const void* codes, const void* rec_ids,
     t.out = static_cast<int32_t*>(outs[l]);
     t.positions_per_block = g[6];
     t.counter_rows = int(g[7]);
+    // whole tables: no owned-block window
     t.probe = xs::ProbeGeom{uint32_t(g[0]), k, int(g[1]), int(g[2]), int(g[3]), int(g[4]),
-                            int(g[5])};
+                            int(g[5]), 0u, 0u};
     const int64_t blocks = (n_pos + g[6] - 1) / g[6];
     if (blocks > grid_x) grid_x = blocks;
     const size_t bytes = size_t(g[7]) * size_t(g[5]) * sizeof(int32_t);

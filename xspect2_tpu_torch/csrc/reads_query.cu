@@ -8,7 +8,9 @@
 //
 // In:  codes uint8  [n_reads, read_len]   0..3, >3 = invalid base
 //      table uint32 [num_blocks, class_words * rows_per_block]
-//            (class-word-major device layout, BlockedBitSlicedIndex.device_table)
+//            (class-word-major device layout, BlockedBitSlicedIndex.device_table);
+//            in owned-block mode (local_blocks > 0) only the local_blocks
+//            blocks from block_offset on, and out is this shard's share
 // Out: out   int32  [n_reads, num_classes]  zeroed by the caller; this
 //            kernel only adds into it
 //
@@ -87,7 +89,8 @@ extern "C" int xs_reads_query(const void* codes, const void* table, void* out,
                               int64_t n_reads, int read_len, int k, int step,
                               int64_t num_blocks, int rows_per_block, int class_words,
                               int num_hashes, int fields_per_word, int num_classes,
-                              int64_t windows_per_block, int max_reads, void* stream) {
+                              int64_t windows_per_block, int max_reads,
+                              int64_t block_offset, int64_t local_blocks, void* stream) {
   Geom g;
   g.n_reads = n_reads;
   g.windows_per_block = windows_per_block;
@@ -95,7 +98,8 @@ extern "C" int xs_reads_query(const void* codes, const void* table, void* out,
   g.step = step;
   g.nkk = (read_len - k + 1 + step - 1) / step;
   g.probe = xs::ProbeGeom{uint32_t(num_blocks), k, rows_per_block, class_words,
-                          num_hashes, fields_per_word, num_classes};
+                          num_hashes, fields_per_word, num_classes,
+                          uint32_t(block_offset), uint32_t(local_blocks)};
   const int64_t total = n_reads * g.nkk;
   if (total <= 0) return 0;
   const int64_t grid = (total + windows_per_block - 1) / windows_per_block;

@@ -12,7 +12,9 @@
 //      rec_ids int32 [n_pos]          record of each position
 //      valid   uint8 [n_pos]          window start kept (record span and
 //                                     sparse-sampling phase)
-//      table   uint32 [num_blocks, class_words * rows_per_block]
+//      table   uint32 [num_blocks, class_words * rows_per_block]; in
+//              owned-block mode (local_blocks > 0) only the local_blocks
+//              blocks from block_offset on, and out is this shard's share
 // Out: out     int32 [max_records, num_classes]  zeroed by the caller;
 //              this kernel only adds into it
 //
@@ -68,7 +70,8 @@ extern "C" int xs_records_query(const void* codes, const void* rec_ids, const vo
                                 int64_t num_blocks, int rows_per_block, int class_words,
                                 int num_hashes, int fields_per_word, int num_classes,
                                 int max_records, int64_t positions_per_block,
-                                int counter_rows, void* stream) {
+                                int counter_rows, int64_t block_offset,
+                                int64_t local_blocks, void* stream) {
   if (n_pos <= 0) return 0;
   Geom g;
   g.n_pos = n_pos;
@@ -76,7 +79,8 @@ extern "C" int xs_records_query(const void* codes, const void* rec_ids, const vo
   g.max_records = max_records;
   g.counter_rows = counter_rows;
   g.probe = xs::ProbeGeom{uint32_t(num_blocks), k, rows_per_block, class_words,
-                          num_hashes, fields_per_word, num_classes};
+                          num_hashes, fields_per_word, num_classes,
+                          uint32_t(block_offset), uint32_t(local_blocks)};
   const int64_t grid = (n_pos + positions_per_block - 1) / positions_per_block;
   const size_t shared = size_t(counter_rows) * size_t(num_classes) * sizeof(int32_t);
   records_query_kernel<<<unsigned(grid), kThreads, shared,

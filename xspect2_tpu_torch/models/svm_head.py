@@ -276,7 +276,10 @@ class SVMHead(nn.Module):
     For each class pair (i, j), i < j in ``classes`` order, the pair's
     decision value votes for i if positive, else for j; the predicted
     class is the first one with the most votes (libsvm's tie rule).
+    ``SVMHead.calls`` counts the predictions made, over all heads.
     """
+
+    calls = 0
 
     def __init__(
         self,
@@ -356,12 +359,20 @@ class SVMHead(nn.Module):
             decisions.append(d)
         return torch.stack(decisions, dim=1)
 
-    def forward(self, x) -> torch.Tensor:
-        """Predicted class indices (into ``classes``) per sample."""
+    def predict_indices(self, x) -> torch.Tensor:
+        """Predicted class indices (into ``classes``) per sample, as a
+        tensor on the head's device: nothing is fetched to the host, so a
+        step that scores on the device stays there.  ``x`` may be float32
+        scores; the decision values are computed in float64."""
+        SVMHead.calls += 1
         pos = (self.decision_values(x) > 0).to(torch.float64)
         votes = pos @ self.w_pos + (1 - pos) @ self.w_neg
         # torch.argmax returns the first maximal index, libsvm's tie rule
         return torch.argmax(votes, dim=1)
+
+    def forward(self, x) -> torch.Tensor:
+        """:meth:`predict_indices`."""
+        return self.predict_indices(x)
 
     def predict(self, x) -> list:
         return [self.classes[int(i)] for i in self(x).cpu()]

@@ -37,13 +37,13 @@ SIGNATURES = {
     "reads_query": (
         "xs_reads_query",
         [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
-         _i64, _i32, _vp],
+         _i64, _i32, _i64, _i64, _vp],
     ),
     "records_wire": ("xs_records_wire", [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp]),
     "records_query": (
         "xs_records_query",
         [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,
-         _i64, _i32, _vp],
+         _i64, _i32, _i64, _i64, _vp],
     ),
     # tables, outs and the geometry rows are host arrays (ctypes arrays)
     "multi_records_query": (
@@ -55,6 +55,7 @@ SIGNATURES = {
         [_vp, _vp, _vp, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _vp],
     ),
     "bloom_count": ("xs_bloom_count", [_vp, _vp, _vp, _vp, _i64, _i32, _i64, _vp]),
+    "probe_select": ("xs_probe_select", [_vp, _vp, _vp, _i64, _i32, _i32, _vp]),
 }
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 

@@ -255,6 +255,18 @@ def packed_wire_for_batch(batch: PreparedBatch, max_records: int):
     return packed, bad_pos, offsets
 
 
+def upload_records_wire(batch: PreparedBatch, max_records: int, device):
+    """The compact wire of a prepared batch (:func:`packed_wire_for_batch`)
+    as tensors on ``device``, cached on the batch."""
+    key = (max_records, str(device))
+    dev = batch._device_wire.get(key)
+    if dev is None:
+        wire = packed_wire_for_batch(batch, max_records)
+        dev = tuple(torch.from_numpy(a).to(device) for a in wire)
+        batch._device_wire[key] = dev
+    return dev
+
+
 # ---------------------------------------------------------------- K1: unpack
 
 
@@ -323,7 +335,8 @@ def count_dtype(read_len: int, k: int, step: int) -> torch.dtype:
 
 
 def _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
-                          num_hashes, fields_per_word, num_classes):
+                          num_hashes, fields_per_word, num_classes,
+                          local_blocks=None, block_offset=0):
     if table.dtype != torch.int32 or table.dim() != 2:
         raise ValueError("table must be a 2-D int32 tensor (uint32 bits)")
     if not 1 <= k <= 32:
@@ -332,10 +345,22 @@ def _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
         raise ValueError("num_hashes must be >= 1")
     if rows_per_block & (rows_per_block - 1) or fields_per_word & (fields_per_word - 1):
         raise ValueError("rows_per_block and fields_per_word must be powers of two")
-    if tuple(table.shape) != (num_blocks, class_words * rows_per_block):
+    table_blocks = num_blocks
+    if local_blocks is not None:
+        # below 2**31 the kernels' unsigned `block - block_offset` cannot
+        # wrap back into the window
+        if not (0 < local_blocks < 1 << 31 and 0 <= block_offset < 1 << 31):
+            raise ValueError(
+                f"owned-block mode needs 0 < local_blocks < 2**31 and 0 <= block_offset "
+                f"< 2**31, not local_blocks={local_blocks}, block_offset={block_offset}"
+            )
+        table_blocks = local_blocks
+    elif block_offset:
+        raise ValueError("block_offset needs local_blocks (the owned-block mode)")
+    if tuple(table.shape) != (table_blocks, class_words * rows_per_block):
         raise ValueError(
             f"table shape {tuple(table.shape)} does not match "
-            f"[{num_blocks}, {class_words * rows_per_block}]"
+            f"[{table_blocks}, {class_words * rows_per_block}]"
         )
     if fields_per_word > 1 and (class_words != 1 or num_classes * fields_per_word > 32):
         raise ValueError("field packing needs all classes in one word")
@@ -344,13 +369,15 @@ def _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
 
 
 def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_words,
-                    num_hashes, fields_per_word, num_classes):
+                    num_hashes, fields_per_word, num_classes,
+                    local_blocks=None, block_offset=0):
     if codes.dtype != torch.uint8 or codes.dim() != 2:
         raise ValueError("codes must be a 2-D uint8 tensor")
     if step < 1:
         raise ValueError("step must be >= 1")
     _check_table_geometry(table, k, num_blocks, rows_per_block, class_words,
-                          num_hashes, fields_per_word, num_classes)
+                          num_hashes, fields_per_word, num_classes,
+                          local_blocks, block_offset)
     if codes.shape[1] < k:
         raise ValueError("reads must be at least k bases long")
     if _counter_rows(num_classes) < 3:
@@ -399,14 +426,27 @@ def _canonical_windows_plain(codes: torch.Tensor, k: int, nk: int):
 
 
 def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
-                     num_hashes, fields_per_word):
+                     num_hashes, fields_per_word, local_blocks=None, block_offset=0):
     """The AND of each k-mer's probe words: one int64 word per class word
-    (masked to the field width when P > 1)."""
+    (masked to the field width when P > 1).
+
+    In owned-block mode (``local_blocks`` set) ``flat`` holds only the
+    ``local_blocks`` blocks from ``block_offset`` on; a k-mer whose block
+    lies outside that window reads a clamped block and its words are
+    forced to 0, so the words of all shards OR (and their counts sum) to
+    the unsharded ones.
+    """
     rpb = rows_per_block
     P = fields_per_word
     fb = 32 // P
     a, b, c = kmer_hash_words_torch(hi, lo)
-    base = (a % num_blocks) * (class_words * rpb)
+    block = a % num_blocks
+    owned = None
+    if local_blocks is not None:
+        local = block - block_offset
+        owned = (local >= 0) & (local < local_blocks)
+        block = local.clamp(0, local_blocks - 1)
+    base = block * (class_words * rpb)
     if P == 1:
         words = []
         for w in range(class_words):
@@ -414,7 +454,7 @@ def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
             for i in range(num_hashes):
                 row = ((b + i * c) & MASK32) & (rpb - 1)
                 acc &= flat[base + w * rpb + row]
-            words.append(acc)
+            words.append(acc if owned is None else torch.where(owned, acc, 0))
         return words
     g = (b >> 24) & (P - 1)
     acc = torch.full_like(a, MASK32)
@@ -425,7 +465,8 @@ def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
         rot = ((g + s) & (P - 1)) * fb
         slot = ((slot >> rot) | (slot << ((32 - rot) & 31))) & MASK32
         acc &= slot
-    return [acc & ((1 << fb) - 1)]
+    acc = acc & ((1 << fb) - 1)
+    return [acc if owned is None else torch.where(owned, acc, 0)]
 
 
 def reads_query_plain(
@@ -440,6 +481,8 @@ def reads_query_plain(
     num_hashes: int,
     fields_per_word: int,
     num_classes: int,
+    local_blocks: int | None = None,
+    block_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`reads_query`: int32 [N, C] hit counts.
 
@@ -461,6 +504,7 @@ def reads_query_plain(
             hi[:, ::step].reshape(-1), lo[:, ::step].reshape(-1), flat,
             num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
             num_hashes=num_hashes, fields_per_word=fields_per_word,
+            local_blocks=local_blocks, block_offset=block_offset,
         )
         counts = out[r0 : r0 + m]
         for w, word in enumerate(words):
@@ -482,6 +526,8 @@ def reads_query(
     num_hashes: int,
     fields_per_word: int,
     num_classes: int,
+    local_blocks: int | None = None,
+    block_offset: int = 0,
 ) -> torch.Tensor:
     """Per-read, per-class hit counts of uniform reads: [N, C].
 
@@ -491,11 +537,18 @@ def reads_query(
     ``0, step, 2*step, ...`` of each read are counted; a window holding
     an invalid base counts nothing.  The result is uint8 when every
     count fits (``ceil((L-k+1)/step) <= 255``), else int32.
+
+    Owned-block mode (``local_blocks`` set): ``table`` holds only the
+    ``local_blocks`` blocks from ``block_offset`` on, ``num_blocks`` is
+    still the whole stack's count, and a window whose block lies outside
+    the table counts nothing.  The counts of shards that tile the stack
+    sum to the unsharded counts.
     """
     geom = dict(
         k=k, step=step, num_blocks=num_blocks, rows_per_block=rows_per_block,
         class_words=class_words, num_hashes=num_hashes,
         fields_per_word=fields_per_word, num_classes=num_classes,
+        local_blocks=local_blocks, block_offset=block_offset,
     )
     _check_geometry(codes, table, **geom)
     n, read_len = codes.shape
@@ -517,7 +570,7 @@ def reads_query(
     rc = fn(
         codes.data_ptr(), table.data_ptr(), out.data_ptr(), n, read_len, k, step,
         num_blocks, rows_per_block, class_words, num_hashes, fields_per_word,
-        num_classes, wpb, max_reads, stream,
+        num_classes, wpb, max_reads, block_offset, local_blocks or 0, stream,
     )
     _kernels.check("reads_query", rc)
     reads_query.launches += 1
@@ -621,6 +674,8 @@ def records_query_plain(
     num_hashes: int,
     fields_per_word: int,
     num_classes: int,
+    local_blocks: int | None = None,
+    block_offset: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`records_query`, a pass of at most
     ``_PLAIN_POSITIONS`` positions at a time."""
@@ -630,6 +685,7 @@ def records_query_plain(
     probe = dict(
         num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
         num_hashes=num_hashes, fields_per_word=fields_per_word,
+        local_blocks=local_blocks, block_offset=block_offset,
     )
     for p0 in range(0, n_pos, _PLAIN_POSITIONS):
         p1 = min(n_pos, p0 + _PLAIN_POSITIONS)
@@ -663,6 +719,8 @@ def records_query(
     fields_per_word: int,
     num_classes: int,
     min_record_len: int | None = None,
+    local_blocks: int | None = None,
+    block_offset: int = 0,
 ) -> torch.Tensor:
     """Per-record, per-class hit counts of a flat batch: int32 [max_records, C].
 
@@ -673,12 +731,14 @@ def records_query(
     record id outside ``[0, max_records)`` counts nothing.
     ``min_record_len``, the batch's shortest record, sizes the kernel's
     thread blocks so that most count in shared memory; the counts do
-    not depend on it.
+    not depend on it.  ``local_blocks`` and ``block_offset`` select the
+    owned-block mode of :func:`reads_query`.
     """
     _check_records_inputs(codes, rec_ids, valid, k, max_records)
     geom = dict(
         k=k, num_blocks=num_blocks, rows_per_block=rows_per_block, class_words=class_words,
         num_hashes=num_hashes, fields_per_word=fields_per_word, num_classes=num_classes,
+        local_blocks=local_blocks, block_offset=block_offset,
     )
     _check_table_geometry(table, **geom)
     if codes.device.type == "cpu":
@@ -696,7 +756,8 @@ def records_query(
     rc = fn(
         codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), table.data_ptr(),
         out.data_ptr(), n_pos, k, num_blocks, rows_per_block, class_words, num_hashes,
-        fields_per_word, num_classes, max_records, ppb, rows, stream,
+        fields_per_word, num_classes, max_records, ppb, rows, block_offset,
+        local_blocks or 0, stream,
     )
     _kernels.check("records_query", rc)
     records_query.launches += 1
@@ -1006,14 +1067,8 @@ class DeviceQueryEngine:
 
     def upload_records_wire(self, batch: PreparedBatch, max_records: int):
         """The compact wire of :meth:`count_hits` on the device
-        (:func:`packed_wire_for_batch`), cached on the batch."""
-        key = (max_records, str(self.device))
-        dev = batch._device_wire.get(key)
-        if dev is None:
-            wire = packed_wire_for_batch(batch, max_records)
-            dev = tuple(torch.from_numpy(a).to(self.device) for a in wire)
-            batch._device_wire[key] = dev
-        return dev
+        (:func:`upload_records_wire`), cached on the batch."""
+        return upload_records_wire(batch, max_records, self.device)
 
     def count_hits(self, batch: PreparedBatch, block: bool = True, wire: str = "auto"):
         """Hit counts of a prepared batch: int64 [batch.num_records, num_classes].
