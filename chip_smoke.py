@@ -53,6 +53,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -99,6 +100,12 @@ INT_OPS_PER_S = 67e12
 # NVLink to the other cards of a host, each way (same data sheet): the rate
 # a collective between cards cannot beat
 NVLINK_BYTES_PER_S = 450e9
+# estimated integer operations of a records window (K3, K5): ~30 to pack
+# and canonicalize it from the codes staged 2-bit packed in shared memory,
+# ~60 to hash it; per table ~10 for its block and row addresses and 3 per
+# probe word.  K2 packs each window base by base: ~6 per base.
+WINDOW_OPS = 90
+TABLE_OPS = 10
 
 
 def log(msg: str) -> None:
@@ -172,19 +179,25 @@ def add_launches(total: dict, more: dict) -> None:
 
 def probe_sectors(idx, hi, lo, seen) -> int:
     """The 32 B sectors of the table that the probes of the canonical
-    k-mers ``(hi, lo)`` (int64 on the card) read, as K2 and K3 address
-    them: marks each in ``seen`` (one bool per sector of the table) and
-    returns the sum over k-mers of the distinct sectors each reads."""
+    k-mers ``(hi, lo)`` (int64 on the card) read, as K2, K3 and K5
+    address the row-major table (``ops.query.table_tensor``): probe row
+    ``r`` of block ``b`` is the ``class_words`` words from
+    ``(b * rows_per_block + r) * class_words`` on.  Marks each sector in
+    ``seen`` (one bool per sector of the table) and returns the sum over
+    k-mers of the distinct sectors each reads."""
     from xspect2_tpu_torch.core.hashing import MASK32, kmer_hash_words_torch
 
     a, b, c = kmer_hash_words_torch(hi, lo)
-    rpb = idx.rows_per_block
+    rpb, cw = idx.rows_per_block, idx.class_words
+    words_per_sector = SECTOR_BYTES // 4
     i = torch.arange(idx.num_hashes, dtype=torch.int64, device=hi.device)
     rows = ((b[:, None] + i * c[:, None]) & MASK32) & (rpb - 1)
-    if idx.fields_per_word == 1:  # the same rows of every class word
-        rows = torch.cat([rows + w * rpb for w in range(idx.class_words)], dim=1)
-    words = (a % idx.num_blocks)[:, None] * (idx.class_words * rpb) + rows
-    sectors = (words // (SECTOR_BYTES // 4)).sort(dim=1).values
+    first = ((a % idx.num_blocks)[:, None] * rpb + rows) * cw  # [n, h]
+    # the sectors of a row run from its first word's to its last word's
+    t = torch.arange((cw + words_per_sector - 2) // words_per_sector + 1, device=hi.device)
+    sectors = torch.minimum(first[:, :, None] // words_per_sector + t,
+                            (first[:, :, None] + cw - 1) // words_per_sector)
+    sectors = sectors.reshape(len(hi), -1).sort(dim=1).values
     seen[sectors.reshape(-1)] = True
     return len(sectors) + int((sectors[:, 1:] != sectors[:, :-1]).sum())
 
@@ -256,7 +269,7 @@ def check_kernels(rng, errors):
         errors["unpack_2bit"] = max(
             errors["unpack_2bit"], int((codes.int() - plain_codes.int()).abs().max())
         )
-        table = torch.from_numpy(idx.device_table().view(np.int32)).to(dev)
+        table = query.table_tensor(idx, dev)
         geom = dict(
             k=K, step=step, num_blocks=idx.num_blocks, rows_per_block=idx.rows_per_block,
             class_words=idx.class_words, num_hashes=idx.num_hashes,
@@ -278,9 +291,10 @@ def check_kernels(rng, errors):
 
 def check_multi_kernels(rng, errors):
     """K5, K6 and K7 equal their plain versions on the card, exactly: K5
-    over tables of three geometries in one launch (field-packed C=4, two
-    class words, 32 class words), also against K3 per table, on the
-    shared-counter and the global-atomic path; K6 in its three modes with
+    over tables of three geometries in one call, one launch for each
+    probe path (field-packed C=4, two class words, 32 class words), also
+    against K3 per table, on the shared-counter and the global-atomic
+    path; K6 in its three modes with
     thresholds 50 and -1 and segment ids outside the range; K7 against
     the host count of a filter with 7 probes."""
     from xspect2_tpu_torch.core import compat, dna
@@ -308,12 +322,12 @@ def check_multi_kernels(rng, errors):
         batch = query.prepare_batch(records, K, chunk=engines[0].chunk)
         max_records = query._next_pow2(max(8, batch.num_records))
         inputs = [torch.from_numpy(a).to(dev) for a in (batch.codes, batch.rec_ids, batch.valid)]
-        got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
         want = query.multi_records_query_plain(tables, geoms, *inputs, max_records=max_records)
-        err5 = 0
-        for e, g, w in zip(engines, got, want):
+        got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
+        err5 = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        for e, w in zip(engines, want):
             single = query.records_query(*inputs, e.table, max_records=max_records, **e.geometry())
-            err5 = max(err5, int((g - w).abs().max()), int((g - single).abs().max()))
+            err5 = max(err5, int((w - single).abs().max()))
         errors["multi_records_query"] = max(errors["multi_records_query"], err5)
         seg = np.sort(rng.integers(0, 5, size=max_records)).astype(np.int32)
         seg[rng.integers(0, max_records, 2)] = [-1, 9]  # outside [0, 5): add nothing
@@ -439,24 +453,9 @@ def time_kernels(idx, reads, card, errors):
 
     k1_bytes = wire[0].numel() + 8 * wire[1].numel() + codes.numel()
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
-    # K2: windows without an N reach the table and read their probe
-    # words; the bytes bound reads each 32 B sector they touch once
-    nk = READ_LEN - K + 1
-    seen = table_sectors(idx)
-    valid = window_sectors = 0
-    for r0 in range(0, n_pad, 32_768):
-        hi, lo, bad = query._canonical_windows_plain(codes[r0 : r0 + 32_768].long(), K, nk)
-        keep = ~bad
-        valid += int(keep.sum())
-        window_sectors += probe_sectors(idx, hi[keep], lo[keep], seen)
-    run_sectors = int(seen.sum())
-    probes = idx.num_hashes * (idx.class_words if idx.fields_per_word == 1 else 1)
-    k2_bytes = codes.numel() + run_sectors * SECTOR_BYTES + got.numel() * got.element_size()
-    k2_reuse_free_ms = (k2_bytes + (window_sectors - run_sectors) * SECTOR_BYTES) / HBM_BYTES_PER_S * 1e3
-    # estimated: ~6 per base to pack and canonicalize, ~60 to hash, 3 per probe
-    k2_ops = n_pad * nk * (6 * K + 60) + valid * probes * 3
-    k2_bytes_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
-    k2_ops_ms = k2_ops / INT_OPS_PER_S * 1e3
+    b2 = reads_bound(idx, codes, got)
+    valid, probes, window_sectors, run_sectors = b2["counted"], b2["probes"], b2["window_sectors"], b2["run_sectors"]
+    k2_bytes_ms, k2_ops_ms, k2_reuse_free_ms = b2["bytes_ms"], b2["ops_ms"], b2["no_reuse_ms"]
     log(
         f"  timing [{card}] unpack_2bit [{n_pad}x{READ_LEN}], {wire[1].numel()} patch "
         f"entries: {k1_ms:.4f} ms, bound {k1_bound:.4f} ms (bytes), plain {k1_plain:.4f} ms"
@@ -483,6 +482,47 @@ def time_kernels(idx, reads, card, errors):
             bound_by="bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
         ),
     }
+
+
+def reads_bound(idx, codes, out):
+    """K2's bound on uint8 reads ``codes`` [n, L] (int on the card) giving
+    ``out``: windows without an N reach the table and read their probe
+    words, each 32 B sector they touch read once (bytes); ~6 per base to
+    pack and canonicalize, ~60 to hash, 3 per probe word (operations).
+    ``idx`` needs the geometry attributes of an index."""
+    from xspect2_tpu_torch.ops import query
+
+    n, read_len = codes.shape
+    nk = read_len - K + 1
+    seen = table_sectors(idx)
+    counted = window_sectors = 0
+    for r0 in range(0, n, 32_768):
+        hi, lo, bad = query._canonical_windows_plain(codes[r0 : r0 + 32_768].long(), K, nk)
+        keep = ~bad
+        counted += int(keep.sum())
+        window_sectors += probe_sectors(idx, hi[keep], lo[keep], seen)
+    run_sectors = int(seen.sum())
+    probes = idx.num_hashes * (idx.class_words if idx.fields_per_word == 1 else 1)
+    nbytes = codes.numel() + run_sectors * SECTOR_BYTES + out.numel() * out.element_size()
+    no_reuse = nbytes + (window_sectors - run_sectors) * SECTOR_BYTES
+    ops = n * nk * (6 * K + 60) + counted * probes * 3
+    return dict(bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / INT_OPS_PER_S * 1e3,
+                no_reuse_ms=no_reuse / HBM_BYTES_PER_S * 1e3, counted=counted, probes=probes,
+                window_sectors=window_sectors, run_sectors=run_sectors)
+
+
+def time_reads_launch(label, idx, codes, table, geom, card) -> tuple[float, float]:
+    """K2 at one more launch shape of the main path: ``(ms, bound_ms)``."""
+    from xspect2_tpu_torch.ops import query
+
+    out = query.reads_query(codes, table, **geom)
+    ms = cuda_ms(lambda: query.reads_query(codes, table, **geom), 10)
+    b = reads_bound(idx, codes, out)
+    bound = max(b["bytes_ms"], b["ops_ms"])
+    log(f"  timing [{card}] reads_query ({label}, {codes.shape[0]}x{codes.shape[1]}): {ms:.4f} ms, bound "
+        f"{bound:.4f} ms (bytes {b['bytes_ms']:.4f}, operations {b['ops_ms']:.4f}), "
+        f"{b['window_sectors'] / max(1, b['counted']):.3f} sectors a window")
+    return ms, bound
 
 
 def run_path(kind, idx, genomes, rng, card):
@@ -789,6 +829,38 @@ def records_breakdown(model_cls, slug, path, step, card):
         + f"; SVM head fit once per loaded model {head_s:.3f}")
 
 
+def records_bound(idx, codes, rec, valid, n_pos, out_bytes):
+    """K3's bound on these inputs under the row-major layout: the codes,
+    record ids and validity once, each table sector a counted window
+    touches once, the output once (bytes); ~WINDOW_OPS + TABLE_OPS + 3
+    per probe word a counted window (operations).  Returns a dict of
+    both, the no-reuse bytes and the sector counts."""
+    from xspect2_tpu_torch.ops import query
+
+    hi, lo, bad = query._canonical_windows_plain(codes[None, : n_pos + K - 1].long(), K, n_pos)
+    keep = valid & ~bad[0]
+    counted = int(keep.sum())
+    seen = table_sectors(idx)
+    window_sectors = probe_sectors(idx, hi[0, keep], lo[0, keep], seen)
+    run_sectors = int(seen.sum())
+    del hi, lo, bad, keep
+    probes = idx.num_hashes * (idx.class_words if idx.fields_per_word == 1 else 1)
+    in_bytes = codes.numel() + 5 * n_pos
+    bytes_ms = (in_bytes + run_sectors * SECTOR_BYTES + out_bytes) / HBM_BYTES_PER_S * 1e3
+    no_reuse_ms = bytes_ms + (window_sectors - run_sectors) * SECTOR_BYTES / HBM_BYTES_PER_S * 1e3
+    ops_ms = counted * (WINDOW_OPS + TABLE_OPS + 3 * probes) / INT_OPS_PER_S * 1e3
+    return dict(bytes_ms=bytes_ms, ops_ms=ops_ms, no_reuse_ms=no_reuse_ms, counted=counted, probes=probes,
+                window_sectors=window_sectors, run_sectors=run_sectors)
+
+
+def bound_text(b) -> str:
+    per = b["window_sectors"] / max(1, b["counted"])
+    return (f"bound {max(b['bytes_ms'], b['ops_ms']):.4f} ms (bytes {b['bytes_ms']:.4f} reading each of the "
+            f"{b['run_sectors']} table sectors touched once under the row-major layout, operations "
+            f"{b['ops_ms']:.4f}); {b['counted']} windows probed x {b['probes']} words, {per:.3f} sectors a "
+            f"window, {b['no_reuse_ms']:.4f} ms with no reuse between windows")
+
+
 def time_records_kernels(engine, batch, card, errors):
     """K1 (flat), K4 and K3 on one assembly's batch: time, bound, plain time."""
     from xspect2_tpu_torch.ops import query
@@ -819,24 +891,10 @@ def time_records_kernels(engine, batch, card, errors):
     k3_ms = cuda_ms(lambda: query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom), 10)
     k3_plain = cuda_ms(lambda: query.records_query_plain(codes, rec, valid, engine.table, **geom), 1)
 
-    idx = engine.index
-    hi, lo, bad = query._canonical_windows_plain(codes[None].long(), K, n_pos)
-    keep = valid & ~bad[0]
-    counted = int(keep.sum())
-    seen = table_sectors(idx)
-    window_sectors = probe_sectors(idx, hi[0, keep], lo[0, keep], seen)
-    run_sectors = int(seen.sum())
-    del hi, lo, bad, keep
-    probes = idx.num_hashes * (idx.class_words if idx.fields_per_word == 1 else 1)
     k1_bytes = packed.numel() + 4 * bad_pos.numel() + n_tot
     k4_bytes = 5 * n_pos + offsets.numel() * 4
-    # each 32 B sector of the table that a counted window probes, read once
-    k3_bytes = n_tot + 5 * n_pos + run_sectors * SECTOR_BYTES + got.numel() * 4
-    k3_reuse_free_ms = (k3_bytes + (window_sectors - run_sectors) * SECTOR_BYTES) / HBM_BYTES_PER_S * 1e3
-    # estimated: ~6 per base to pack and canonicalize, ~60 to hash, 3 per probe
-    k3_ops = counted * (6 * K + 60 + 3 * probes)
-    k3_bytes_ms = k3_bytes / HBM_BYTES_PER_S * 1e3
-    k3_ops_ms = k3_ops / INT_OPS_PER_S * 1e3
+    b3 = records_bound(engine.index, codes, rec, valid, n_pos, got.numel() * 4)
+    k3_bytes_ms, k3_ops_ms = b3["bytes_ms"], b3["ops_ms"]
     out = {
         "unpack_2bit": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"),
         "records_wire": dict(ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"),
@@ -849,13 +907,74 @@ def time_records_kernels(engine, batch, card, errors):
     for name, t in out.items():
         log(f"  timing [{card}] {name} ({shape}): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms")
-    log(f"  records_query: {counted} windows probed x {probes} words; {window_sectors} sectors summed "
-        f"over windows ({window_sectors / counted:.3f} per window), {run_sectors} distinct over the run; "
-        f"bytes bound {k3_bytes_ms:.4f} ms reading each sector touched once, {k3_reuse_free_ms:.4f} ms "
-        f"with no reuse between windows; operations {k3_ops_ms:.4f} ms")
+    log(f"  records_query: {bound_text(b3)}")
     real = int(batch.offsets[-1])
     log(f"  device-side [{card}]: {real / ((k1_ms + k4_ms + k3_ms) / 1e3) / 1e6:.1f} M bases/s "
         f"({real} bases; unpack + wire + query kernels)")
+    return out
+
+
+def time_wide_records_query(batch, rng, card, errors):
+    """K3 at 512 classes (cw=16, h=3, 8 rows a block: a random 514 MB
+    table whose words are the AND of two random words, so a random k-mer
+    hits a class w.p. 1/64) on one 4 Mbp assembly (``batch``), and on
+    ~4 M positions of 30-120 bp records with the shortest record as the
+    hint (the shared-counter path) and with a hint of 10**6 (blocks whose
+    record span exceeds their 16 counter rows count with global atomics):
+    exact against the plain version; time, bound, plain time."""
+    from xspect2_tpu_torch.ops import query
+
+    dev = torch.device("cuda")
+    idx = random_index(512, 3, rng, num_kmers=500_000)
+    idx.table &= rng.integers(0, 2**32, size=idx.table.size, dtype=np.uint64).astype(np.uint32)
+    require((idx.class_words, idx.rows_per_block, idx.fields_per_word) == (16, 8, 1),
+            "the 512-class geometry is not cw=16, 8 rows, P=1")
+    engine = query.DeviceQueryEngine(idx, device=dev)
+    genome = rng.integers(0, 4, size=1_000_000, dtype=np.uint8)
+    records, total = [], 0
+    while total < GENOME_LEN:
+        n = int(rng.integers(30, 121))
+        at = int(rng.integers(0, len(genome) - n))
+        records.append((f"s{len(records)}", genome[at : at + n]))
+        total += n
+    short = query.prepare_batch(records, K, chunk=engine.chunk)
+    cases = (("one 4 Mbp assembly", batch, None), ("short records, shared counters", short, None),
+             ("short records, global atomics", short, 10**6))
+    out = {}
+    for label, b, hint in cases:
+        max_records = query._next_pow2(max(8, b.num_records))
+        n_pos = b.num_positions
+        codes, rec, valid = query.restore_records_wire(
+            *engine.upload_records_wire(b, max_records), n_pos, k=K, step=b.step)
+        hint = hint or int(np.diff(b.offsets).min())
+        geom = dict(max_records=max_records, **engine.geometry())
+        got = query.records_query(codes, rec, valid, engine.table, min_record_len=hint, **geom)
+        want = query.records_query_plain(codes, rec, valid, engine.table, **geom)
+        err = int((got - want).abs().max())
+        errors["records_query"] = max(errors["records_query"], err)
+        require(err == 0, f"records_query disagrees with its plain version at 512 classes ({label})")
+        del want
+        ms = cuda_ms(lambda: query.records_query(codes, rec, valid, engine.table, min_record_len=hint, **geom), 10)
+        plain_ms = cuda_ms(lambda: query.records_query_plain(codes, rec, valid, engine.table, **geom), 1, warm=False)
+        # the blocks whose record span exceeds their counter rows: the global-atomic path
+        ppb, rows = query._block_range(idx.num_classes, max_records, hint, K)
+        nb = -(-n_pos // ppb)
+        ok = torch.nn.functional.pad(valid & (rec >= 0) & (rec < max_records), (0, nb * ppb - n_pos)).view(nb, ppb)
+        r = torch.nn.functional.pad(rec, (0, nb * ppb - n_pos)).view(nb, ppb)
+        first = torch.where(ok, r, torch.iinfo(torch.int32).max).min(dim=1).values
+        last = torch.where(ok, r, -1).max(dim=1).values
+        used = last >= 0
+        wide = int(((last - first + 1 > rows) & used).sum())
+        b3 = records_bound(idx, codes, rec, valid, n_pos, got.numel() * 4)
+        log(f"  timing [{card}] records_query, 512 classes ({label}: {b.num_records} records, {n_pos} positions, "
+            f"hint {hint}; {wide} of {int(used.sum())} thread blocks count with global atomics): {ms:.4f} ms, "
+            f"{bound_text(b3)}; plain {plain_ms:.4f} ms; max |err| {err}, hits {int(got.sum())}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(b3["bytes_ms"], b3["ops_ms"]),
+                          global_blocks=wide, blocks=int(used.sum()))
+        del codes, rec, valid, got
+    require(out["short records, global atomics"]["global_blocks"] > 0
+            and out["short records, shared counters"]["global_blocks"] == 0,
+            "the short-record cases do not take the shared and the global-atomic path")
     return out
 
 
@@ -945,6 +1064,7 @@ def run_records(rng, card, errors):
     model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     batch = query.prepare_batch(assemblies[0][1], K, step=1, chunk=model.engine.chunk)
     timings = time_records_kernels(model.engine, batch, card, errors)
+    timings["records_query"]["classes_512"] = time_wide_records_query(batch, rng, card, errors)
     label, contigs = assemblies[0]
     single = json.loads((base / "species_step1" / "res_1.json").read_text(encoding="utf-8"))
     return launches, timings, dict(model=model, reads=asm_reads, contigs=contigs, label=label, single=single)
@@ -1119,7 +1239,7 @@ def mlst_group(model, seqs, card, errors):
     k6_totals_library = cuda_ms(lambda: [torch.where(h > CHUNK_SCORE_THRESHOLD, h, 0).sum(0) for h in counts], 5)
 
     # K5's bound: the inputs once, every table sector its counted windows
-    # touch once, the outputs once
+    # touch once under the row-major layout, the outputs once
     seen = [table_sectors(e.index) for e in engines]
     window_sectors = [0] * len(engines)
     counted = 0
@@ -1137,8 +1257,8 @@ def mlst_group(model, seqs, card, errors):
     out_bytes = sum(c.numel() * 4 for c in counts)
     k5_bytes = len(batch.codes) + 5 * n_pos + sum(run_sectors) * SECTOR_BYTES + out_bytes
     k5_reuse_free_ms = (k5_bytes + (sum(window_sectors) - sum(run_sectors)) * SECTOR_BYTES) / HBM_BYTES_PER_S * 1e3
-    # estimated per table: ~6 per base to pack and canonicalize, ~60 to hash, 3 per probe word
-    k5_ops = counted * sum(6 * MLST_K + 60 + 3 * pr for pr in probes)
+    # each window packed and hashed once, its block and probe words per table
+    k5_ops = counted * (WINDOW_OPS + sum(TABLE_OPS + 3 * pr for pr in probes))
     k5_bytes_ms = k5_bytes / HBM_BYTES_PER_S * 1e3
     k5_ops_ms = k5_ops / INT_OPS_PER_S * 1e3
     k6_bytes = out_bytes + 4 * max_records + sum(r.numel() * 4 for r in reduced)
@@ -1147,8 +1267,9 @@ def mlst_group(model, seqs, card, errors):
         f"(bytes {k5_bytes_ms:.4f} reading each of the {sum(run_sectors)} table sectors touched once, "
         f"operations {k5_ops_ms:.4f}), plain {k5_plain:.4f} ms")
     log(f"  multi_records_query: {counted} windows probed x {probes} words per table; {sum(window_sectors)} sectors "
-        f"summed over windows and tables ({sum(window_sectors) / counted / len(engines):.3f} per window and table), "
-        f"{sum(run_sectors)} distinct over the run; bytes with no reuse between windows {k5_reuse_free_ms:.4f} ms")
+        f"summed over windows and tables ({sum(window_sectors) / counted / len(engines):.3f} per window and table "
+        f"under the row-major layout), {sum(run_sectors)} distinct over the run; bytes with no reuse between "
+        f"windows {k5_reuse_free_ms:.4f} ms")
     log(f"  timing [{card}] reduce_record_counts, segment totals ({shape}): {k6_ms:.4f} ms, bound {k6_bound:.4f} ms "
         f"(bytes), plain {k6_plain:.4f} ms, PyTorch where + index_add_ per table {k6_library:.4f} ms "
         f"(where + sum per table, the totals form: {k6_totals_library:.4f} ms)")
@@ -1273,6 +1394,7 @@ def run_mlst(rng, card, errors):
         log(f"  end-to-end [{card}] MLST predict, batch_genomes {bg}: {len(records)} records ({MLST_GENOMES} genomes of "
             f"{GENOME_LEN} bp) in {e2e:.2f} s, {MLST_GENOMES / e2e:.2f} genomes/s, {total_bases / e2e / 1e6:.2f} M bases/s; "
             f"launches K5 {got['multi_records_query']}, K6 {got['reduce_record_counts']}")
+        # every locus of this scheme takes K5's 4-word path: one K5 launch a group
         require(got["multi_records_query"] == got["reduce_record_counts"] > 0, "MLST predict: K5 and K6 launches differ")
     require(by_batch[1] == by_batch[4] == by_batch[8] == res["Results"], "MLST: results differ between batch sizes")
     log("  MLST: batch_genomes 1, 4 and 8 and classify_mlst give identical Results")
@@ -1306,10 +1428,21 @@ def run_mlst(rng, card, errors):
 # ---------------------------------------------------------------- phase 8
 
 
+def bloom_bound(pos, mask, num_hashes):
+    """K7's bound on these inputs: ``(bytes_ms, ops_ms, sectors)``; the
+    positions and mask read once, each 32 B filter sector a probe touches
+    once, one count written; ~6 operations per probe (estimated)."""
+    sectors = int(torch.unique((pos[mask].long() & 0xFFFFFFFF) >> 8).numel())  # 32 B = 256 filter bits
+    nbytes = pos.numel() * 4 + mask.numel() + sectors * SECTOR_BYTES + 4
+    ops = int(mask.sum()) * num_hashes * 6
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3, sectors
+
+
 def run_xxh3_genus(genus_genome, assemblies, card, errors):
     """Fit the xxh3 compat genus model on the genus genome, classify
     assemblies drawn from it: every N-free window hits, counts equal the
-    host's; then K7 at the longest contig's shape."""
+    host's; then K7 at the longest contig's shape, and at every launch of
+    the run summed."""
     from xspect2_tpu_torch import classify
     from xspect2_tpu_torch.core import dna
     from xspect2_tpu_torch.definitions import get_xspect_model_path
@@ -1376,10 +1509,18 @@ def run_xxh3_genus(genus_genome, assemblies, card, errors):
     require(errors["bloom_count"] == 0, "bloom_count disagrees at the main path's shape")
     k7_ms = cuda_ms(lambda: bloom.bloom_count(words, pos, mask), 20)
     k7_plain = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
-    sectors = int(torch.unique((pos[mask].long() & 0xFFFFFFFF) >> 8).numel())  # 32 B = 256 filter bits
-    k7_bytes = pos.numel() * 4 + mask.numel() + sectors * SECTOR_BYTES + 4
-    k7_bytes_ms = k7_bytes / HBM_BYTES_PER_S * 1e3
-    k7_ops_ms = int(mask.sum()) * filt.num_hashes * 6 / INT_OPS_PER_S * 1e3  # estimated: ~6 per probe
+    k7_bytes_ms, k7_ops_ms, sectors = bloom_bound(pos, mask, filt.num_hashes)
+    # and at every launch of the run: one per contig
+    per_launch = []
+    for contigs in assemblies:
+        for _, c in contigs:
+            c_hi, c_lo, c_valid = dna.canonical_kmers(c, K)
+            p = torch.from_numpy(filt._positions(c_hi, c_lo, c_valid).astype(np.uint32).view(np.int32)).to(dev)
+            m = torch.from_numpy(c_valid).to(dev)
+            per_launch.append((cuda_ms(lambda: bloom.bloom_count(words, p, m), 3), max(bloom_bound(p, m, filt.num_hashes)[:2])))
+    launch_ms, launch_bound = (sum(x) for x in zip(*per_launch))
+    log(f"  timing [{card}] bloom_count at each of its {len(per_launch)} launches of the run (one per contig): "
+        f"{launch_ms:.4f} ms in all, bound {launch_bound:.4f} ms in all, gap {launch_ms - launch_bound:.4f} ms")
     log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {k7_ms:.4f} ms, "
         f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
         f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain:.4f} ms; hashing these k-mers on the host "
@@ -1388,6 +1529,7 @@ def run_xxh3_genus(genus_genome, assemblies, card, errors):
         "bloom_count": dict(
             ms=k7_ms, plain_ms=k7_plain, bound_ms=max(k7_bytes_ms, k7_ops_ms),
             bound_by="bytes" if k7_bytes_ms >= k7_ops_ms else "operations", library_ms=None,
+            run_gap_ms=launch_ms - launch_bound,
         ),
     }
 
@@ -1710,10 +1852,11 @@ def run_nccl_world_of_one(asm, card):
     then both classifiers through their public methods on a 1x1 mesh:
     every collective runs through NCCL, the counts equal the engine's and
     the classification the single-device model's.  Returns the kernel
-    launches of these runs."""
+    launches of these runs and K2's time and bound at their shape."""
     import torch.distributed as dist
 
     from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.ops import query
     from xspect2_tpu_torch.parallel import (
         BlockShardedClassifier, ShardedClassifier, distributed, make_block_mesh, make_mesh,
     )
@@ -1758,7 +1901,11 @@ def run_nccl_world_of_one(asm, card):
     log(f"  sharded public methods: kernel launches {launches}; SVM head calls {SVMHead.calls - calls}")
     require(all(launches[name] > 0 for name in ("unpack_2bit", "reads_query", "records_wire", "records_query")),
             "a kernel of the sharded path was not launched")
-    return launches
+    engine = model.engine
+    codes = query.unpack_2bit(*engine.upload_wire(reads, 4096), READ_LEN)
+    k2 = time_reads_launch("the shape of these runs: the 40-class table", idx, codes, engine.table,
+                           dict(step=1, **engine.geometry()), card)
+    return launches, k2
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1767,7 +1914,8 @@ def run_nccl_world_of_one(asm, card):
 def run_microbench(card, errors):
     """The probe-select microbenchmark at its default shape (a 50 MB table,
     8 classes, 7 probes, 65,536 reads in chunks of 8,192), then K8 at one
-    chunk's shape: time, bound, plain time."""
+    chunk's shape: time, bound, plain time; and K2 at the shape the
+    microbenchmark launches it (one pass of 65,536 reads): time, bound."""
     from xspect2_tpu_torch.core.hashing import block_words_fieldbase_torch
     from xspect2_tpu_torch.ops import query
     from xspect2_tpu_torch.ops.probe_select import probe_select, probe_select_plain
@@ -1804,6 +1952,11 @@ def run_microbench(card, errors):
     k8_bytes = t * (512 + 4 * selbits.shape[1] + 4 * cw)
     k8_bound = k8_bytes / HBM_BYTES_PER_S * 1e3
     k8_ops_ms = t * 128 * 3 / INT_OPS_PER_S * 1e3  # estimated: select, AND and shuffle per word
+    mb_reads = torch.from_numpy(rng.integers(0, 4, size=(65_536, READ_LEN), dtype=np.uint8)).to("cuda")
+    mb_idx = SimpleNamespace(num_blocks=geom["num_blocks"], rows_per_block=rpb, class_words=cw, num_hashes=7,
+                             fields_per_word=1)
+    k2 = time_reads_launch("the microbenchmark's 50 MB table, one pass", mb_idx, mb_reads, table,
+                           dict(step=1, **geom), card)
     log(f"  timing [{card}] probe_select ([{t}, 128] blocks, {selbits.shape[1]} mask words, cw={cw}; one chunk of 8,192 "
         f"reads): {k8_ms:.4f} ms, bound {max(k8_bound, k8_ops_ms):.4f} ms (bytes {k8_bound:.4f}: {k8_bytes} B once; "
         f"operations {k8_ops_ms:.4f}), plain {k8_plain:.4f} ms; the gather that feeds it (index_select) {gather_ms:.4f} ms")
@@ -1812,7 +1965,7 @@ def run_microbench(card, errors):
             ms=k8_ms, plain_ms=k8_plain, bound_ms=max(k8_bound, k8_ops_ms),
             bound_by="bytes" if k8_bound >= k8_ops_ms else "operations", library_ms=None,
         ),
-    }
+    }, k2
 
 
 
@@ -1865,7 +2018,7 @@ def main() -> int:
     genus_genome = rng.integers(0, 4, size=(1, 32_000_000), dtype=np.uint8)
     genus_idx = build_index(["smoke"], genus_genome)
     ge_launches, ge_reads = run_path("genus", genus_idx, genus_genome, rng, card)
-    time_kernels(genus_idx, ge_reads, card, errors)
+    ge_timings = time_kernels(genus_idx, ge_reads, card, errors)
     log("phase 4b: genus reads on (data x blk) meshes, every shard in turn on this card")
     run_sharded_reads("genus", genus_idx, ge_reads, card, errors)
     del ge_reads
@@ -1881,7 +2034,7 @@ def main() -> int:
     log("phase 6b: the 40-class table on (data x cls) and (data x blk) meshes, every shard in turn on this card")
     k3_sharded, head_timing = run_sharded_records(asm, card, errors)
     log("phase 6c: both sharded classifiers through their public methods, NCCL at world size 1")
-    nccl_launches = run_nccl_world_of_one(asm, card)
+    nccl_launches, k2_nccl = run_nccl_world_of_one(asm, card)
     del asm
 
     log(f"phase 7: MLST, {MLST_LOCI} loci x {MLST_ALLELES} alleles x {ALLELE_LEN} bp, {MLST_GENOMES} genomes of "
@@ -1893,10 +2046,21 @@ def main() -> int:
     del genus_genome, genus_assemblies
 
     log("phase 9: the probe-select microbenchmark at its default shape")
-    p_launches, p_timings = run_microbench(card, errors)
+    p_launches, p_timings, k2_microbench = run_microbench(card, errors)
 
     all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings}
     all_timings["reads_query"]["block_sharded"] = k2_sharded
+    # K2 over its launches of the run at their own shapes (species, genus,
+    # the NCCL runs, the microbenchmark): time less bound, summed
+    k2_shapes = [
+        (sp_launches["reads_query"], timings["reads_query"]["ms"], timings["reads_query"]["bound_ms"]),
+        (ge_launches["reads_query"], ge_timings["reads_query"]["ms"], ge_timings["reads_query"]["bound_ms"]),
+        (nccl_launches["reads_query"], *k2_nccl), (p_launches["reads_query"], *k2_microbench),
+    ]
+    all_timings["reads_query"]["run_gap_ms"] = sum(n * (ms - bound) for n, ms, bound in k2_shapes)
+    log(f"run gaps [{card}]: reads_query {all_timings['reads_query']['run_gap_ms']:.4f} ms over "
+        f"{sum(n for n, _, _ in k2_shapes)} launches at their own shapes, bloom_count "
+        f"{x_timings['bloom_count']['run_gap_ms']:.4f} ms over {x_launches['bloom_count']} (time less bound, summed)")
     all_timings["records_query"]["block_sharded"] = k3_sharded
     all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, mlst_launches,
                     x_launches, p_launches)
@@ -1916,7 +2080,8 @@ def main() -> int:
         f"methods at NCCL world size 1, classify_mlst and the three MLST predict runs, the xxh3 genus "
         f"run, the microbenchmark); unpack_2bit and reads_query timed at the species reads shape, "
         f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
-        f"at the same shapes), multi_records_query and reduce_record_counts at one group of 4 genomes, "
+        f"at the same shapes; classes_512: a 512-class table, also on short records and the global-atomic "
+        f"path), multi_records_query and reduce_record_counts at one group of 4 genomes, "
         f"bloom_count at the longest contig, probe_select at one chunk of 8,192 reads; "
         f"whole run {time.time() - t_start:.1f} s"
     )

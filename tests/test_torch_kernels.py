@@ -187,16 +187,17 @@ def _multi_case(rng, cuda_device, num_records, lo, hi):
 @pytest.mark.cuda
 @pytest.mark.parametrize("num_records,lo,hi,hint", [(1, 400, 500, None), (5, 22, 500, 22), (300, 22, 600, 100), (300, 22, 40, 10**6)])
 def test_multi_records_query_kernel_matches_plain_and_single(cuda_device, num_records, lo, hi, hint):
-    """K5 over tables of three geometries in one launch equals its plain
-    version, K3 per table and the host; a wrong record-length hint sends
-    blocks to the global-atomic path and changes nothing."""
+    """K5 over tables of three geometries, one launch for each probe
+    path, equals its plain version, K3 per table and the host; a wrong
+    record-length hint sends blocks to the global-atomic path and changes
+    nothing."""
     rng = np.random.default_rng(num_records + lo)
     indices, engines, records, batch, max_records, inputs = _multi_case(rng, cuda_device, num_records, lo, hi)
     tables = [e.table for e in engines]
     geoms = [e.geometry() for e in engines]
     before = query.multi_records_query.launches
     got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
-    assert query.multi_records_query.launches == before + 1
+    assert query.multi_records_query.launches == before + len({query._probe_kind(g) for g in geoms})
     want = query.multi_records_query_plain(tables, geoms, *inputs, max_records=max_records)
     for idx, e, g, w in zip(indices, engines, got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
@@ -231,7 +232,8 @@ def test_reduce_kernel_matches_plain(cuda_device, mode, threshold, max_records):
 
 @pytest.mark.cuda
 def test_multi_packed_query_launches_each_kernel_once(cuda_device):
-    """One fused call: K1 and K4 once, K5 once over all tables, K6 once."""
+    """One fused call: K1 and K4 once, K5 once for each probe path among
+    the tables (three here), K6 once."""
     rng = np.random.default_rng(3)
     indices, engines, records, batch, max_records, _ = _multi_case(rng, cuda_device, 20, 100, 600)
     wire = engines[0].upload_records_wire(batch, max_records)
@@ -244,7 +246,10 @@ def test_multi_packed_query_launches_each_kernel_once(cuda_device):
     names = ("unpack_2bit", "records_wire", "multi_records_query", "reduce_record_counts")
     before = {n: getattr(query, n).launches for n in names}
     outs = fused([e.table for e in engines], *wire, torch.from_numpy(seg).to(cuda_device))
-    assert {n: getattr(query, n).launches - before[n] for n in names} == dict.fromkeys(names, 1)
+    paths = len({query._probe_kind(e.geometry()) for e in engines})
+    assert paths == 3
+    assert {n: getattr(query, n).launches - before[n] for n in names} == {**dict.fromkeys(names, 1),
+                                                                          "multi_records_query": paths}
     for idx, out in zip(indices, outs):
         host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21)) for _, c in records])
         want = np.stack([host[seg[: len(records)] == s].sum(axis=0) for s in range(3)])
@@ -386,3 +391,88 @@ def test_microbench_probe_pipeline_equals_reads_query_on_the_card(cuda_device, c
                                iters=1, device=cuda_device)
     assert res["equal"] and "probe_select == reads_query: True" in capsys.readouterr().out
     assert probe_select.launches == before + 2 * 4  # a warm-up and one timed pass of 4 chunks
+
+
+# ------------------------------------------------------------------ the row-major layout
+
+
+def _index_k(num_classes, num_hashes, rng, k, fpr, length):
+    genomes = [rng.integers(0, 4, size=length, dtype=np.uint8) for _ in range(num_classes)]
+    idx = BlockedBitSlicedIndex.create(k, [f"c{i}" for i in range(num_classes)], length, fpr=fpr,
+                                       num_hashes=num_hashes)
+    for ci, g in enumerate(genomes):
+        idx.insert_kmers(ci, *dna.canonical_kmers(g, k))
+    return idx, genomes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi,hint", [(300, 1500, None), (32, 80, 10**6)])
+def test_multi_records_query_kernel_at_the_mlst_geometry(cuda_device, lo, hi, hint):
+    """K5 over seven 1,000-allele tables (k=31, fpr 0.001, h=1: cw=32, 8
+    rows a block) and one 40-class table (cw=2) in one call, one launch
+    for each of the two probe paths, equals its plain version and the
+    host counts; short records with a hint of 10**6 send the blocks to the
+    global-atomic path."""
+    rng = np.random.default_rng(lo)
+    indices, genomes = [], []
+    for num_classes, h in [(1000, 1)] * 7 + [(40, 3)]:
+        idx, g = _index_k(num_classes, h, rng, 31, 0.001, 450)
+        indices.append(idx)
+        genomes += g[:2]
+    assert [(i.class_words, i.rows_per_block) for i in indices[:7]] == [(32, 8)] * 7
+    engines = [query.DeviceQueryEngine(idx, device=cuda_device, chunk=8192) for idx in indices]
+    # records cut from a run of alleles of every table
+    pool = np.concatenate([genomes[int(i)] for i in rng.integers(0, len(genomes), 40)])
+    records = _records(rng, [pool], 40 if hint is None else 150, lo, hi)
+    batch = query.prepare_batch(records, 31, chunk=8192)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid)]
+    tables, geoms = [e.table for e in engines], [e.geometry() for e in engines]
+    before = query.multi_records_query.launches
+    got = query.multi_records_query(tables, geoms, *inputs, max_records=max_records, min_record_len=hint)
+    assert query.multi_records_query.launches == before + 2
+    want = query.multi_records_query_plain(tables, geoms, *inputs, max_records=max_records)
+    for idx, g, w in zip(indices, got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+        host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 31)) for _, c in records])
+        np.testing.assert_array_equal(g[: len(records)].cpu().numpy(), host)
+    assert sum(int(g.sum()) for g in got) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_classes,num_hashes", [(40, 7), (512, 3), (1000, 1)])
+@pytest.mark.parametrize("step", [1, 3])
+@pytest.mark.parametrize("n_blk", [None, 3])
+def test_records_query_kernel_reads_row_major_probe_rows(cuda_device, num_classes, num_hashes, step, n_blk):
+    """K3 at 2, 16 and 32 class words (uint2 and uint4 probe rows), whole
+    and in owned-block mode over 3 shards, equals its plain version, and
+    the counts (summed over the shards) equal the host's."""
+    from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
+
+    rng = np.random.default_rng(num_classes + step)
+    idx, genomes = _index(num_classes, num_hashes, rng, length=600)
+    assert idx.class_words == -(-num_classes // 32) and idx.fields_per_word == 1
+    records = _records(rng, genomes, 50, 22, 500)
+    engine = query.DeviceQueryEngine(idx, device=cuda_device, chunk=8192)
+    batch = query.prepare_batch(records, 21, step=step, chunk=engine.chunk)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    geom = dict(max_records=max_records, **engine.geometry())
+    inputs = [torch.from_numpy(a).to(cuda_device) for a in (batch.codes, batch.rec_ids, batch.valid)]
+    if n_blk is None:
+        shards = [(engine.table, {})]
+    else:
+        local = -(-idx.num_blocks // n_blk)
+        shards = [
+            (torch.from_numpy(blk_table_shard(idx, n_blk, m).view(np.int32)).to(cuda_device),
+             dict(local_blocks=local, block_offset=m * local))
+            for m in range(n_blk)
+        ]
+    total = torch.zeros((max_records, num_classes), dtype=torch.int32, device=cuda_device)
+    for table, window in shards:
+        got = query.records_query(*inputs, table, min_record_len=22, **geom, **window)
+        want = query.records_query_plain(*inputs, table, **geom, **window)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        total += got
+    host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21, step=step)) for _, c in records])
+    np.testing.assert_array_equal(total[: len(records)].cpu().numpy(), host)
+    assert host.sum() > 0

@@ -380,7 +380,8 @@ def test_table_shards_equal_the_jax_classifiers_addressable_shards(indices, axis
     seen = set()
     for s in jclf.table3.addressable_shards:
         coord = (s.index[dim].start or 0) // per_shard
-        data = np.asarray(s.data)
+        # [blocks, class words, rows] there, row-major [blocks, rows, class words] here
+        data = np.asarray(s.data).transpose(0, 2, 1)
         np.testing.assert_array_equal(
             shards[coord].numpy().view(np.uint32), data.reshape(data.shape[0], -1))
         seen.add(coord)

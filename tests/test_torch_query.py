@@ -203,7 +203,8 @@ def test_upload_wire_is_the_padded_packed_wire(indices):
 def test_owned_block_read_query_matches_the_jax_block_sharded_body(indices, name, n_blk, step):
     """``reads_query`` with ``local_blocks``/``block_offset`` on each block
     shard equals the JAX package's read query body in its block-sharded
-    mode (run on the CPU), and the shards sum to the unsharded counts."""
+    mode (run on the CPU, on the same shard in its class-word-major
+    layout), and the shards sum to the unsharded counts."""
     import jax.numpy as jnp
 
     from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
@@ -221,8 +222,9 @@ def test_owned_block_read_query_matches_the_jax_block_sharded_body(indices, name
     total = np.zeros((16, idx.num_classes), dtype=np.int64)
     for m in range(n_blk):
         shard = blk_table_shard(idx, n_blk, m)
-        want = np.asarray(body(jnp.asarray(shard), jnp.asarray(reads), int(idx.num_blocks),
-                               jnp.int32(m * local_blocks)))
+        jshard = shard.reshape(local_blocks, idx.rows_per_block, idx.class_words).transpose(0, 2, 1)
+        want = np.asarray(body(jnp.asarray(jshard.reshape(local_blocks, -1)), jnp.asarray(reads),
+                               int(idx.num_blocks), jnp.int32(m * local_blocks)))
         got = query.reads_query(
             torch.from_numpy(reads), torch.from_numpy(shard.view(np.int32)), step=step, **geom,
             local_blocks=local_blocks, block_offset=m * local_blocks,

@@ -384,7 +384,8 @@ def test_calculate_hits_and_count_kmers_match(session_data_root):
 def test_owned_block_records_query_matches_the_jax_block_sharded_body(indices, name, n_blk, step):
     """``records_query`` with ``local_blocks``/``block_offset`` on each
     block shard equals the JAX package's query body in its block-sharded
-    mode (run on the CPU), and the shards sum to the unsharded counts."""
+    mode (run on the CPU, on the same shard in its class-word-major
+    layout), and the shards sum to the unsharded counts."""
     import jax.numpy as jnp
 
     from xspect2_tpu_torch.parallel.block_sharded import blk_table_shard
@@ -405,8 +406,9 @@ def test_owned_block_records_query_matches_the_jax_block_sharded_body(indices, n
     total = np.zeros((max_records, idx.num_classes), dtype=np.int64)
     for m in range(n_blk):
         shard = blk_table_shard(idx, n_blk, m)
+        jshard = shard.reshape(local_blocks, idx.rows_per_block, idx.class_words).transpose(0, 2, 1)
         want = np.asarray(body(
-            jnp.asarray(shard), jnp.asarray(batch.codes), jnp.asarray(batch.rec_ids),
+            jnp.asarray(jshard.reshape(local_blocks, -1)), jnp.asarray(batch.codes), jnp.asarray(batch.rec_ids),
             jnp.asarray(batch.valid), int(idx.num_blocks), jnp.int32(m * local_blocks),
         ))
         got = query.records_query(

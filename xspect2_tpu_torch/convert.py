@@ -29,8 +29,9 @@ def index_from_arrays(meta: dict, table: np.ndarray) -> BlockedBitSlicedIndex:
 def table_shards(meta: dict, table: np.ndarray, axis: str, n_shards: int) -> list[torch.Tensor]:
     """The ``n_shards`` table shards of an index along the ``"cls"`` or
     ``"blk"`` mesh axis, in coordinate order, as the int32 tensors (uint32
-    bits) the sharded classifiers query: [num_blocks, cw_local * rows]
-    for ``cls``, [local_blocks, class_words * rows] for ``blk``."""
+    bits) the sharded classifiers query, slices of the row-major table:
+    [num_blocks, rows * cw_local] for ``cls``, [local_blocks, rows *
+    class_words] for ``blk``."""
     if axis not in ("cls", "blk"):
         raise ValueError(f"unknown mesh axis {axis!r}: expected 'cls' or 'blk'")
     index = index_from_arrays(meta, table)

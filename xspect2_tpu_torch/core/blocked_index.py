@@ -361,13 +361,16 @@ class BlockedBitSlicedIndex:
         return self.table.nbytes
 
     def device_table(self) -> np.ndarray:
-        """The table in the device layout: [num_blocks, class_words * R] uint32.
+        """The table in the JAX package's device layout: [num_blocks,
+        class_words * R] uint32.
 
         Class-word-major within a block (word w's rows are contiguous),
         unlike the row-major on-disk layout, so one class word's probe
         rows of a block sit in one 4*R-byte run.  With class_words == 1
         (always the case when fields_per_word > 1) the transpose is the
-        identity.
+        identity.  The port's kernels read the row-major ``table`` itself
+        (``ops.query.table_tensor``), where one probe row is one run of
+        class_words words; this method mirrors the JAX API.
         """
         t3 = self.table.reshape(
             self.num_blocks, self.rows_per_block, self.class_words

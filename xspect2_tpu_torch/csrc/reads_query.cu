@@ -7,9 +7,9 @@
 // tools/microbench_pallas.py computes (the AND of the selected rows).
 //
 // In:  codes uint8  [n_reads, read_len]   0..3, >3 = invalid base
-//      table uint32 [num_blocks, class_words * rows_per_block]
-//            (class-word-major device layout, BlockedBitSlicedIndex.device_table);
-//            in owned-block mode (local_blocks > 0) only the local_blocks
+//      table uint32 [num_blocks, rows_per_block * class_words]
+//            (the index's row-major layout, BlockedBitSlicedIndex.table,
+//            16-byte aligned); in owned-block mode (local_blocks > 0) only the local_blocks
 //            blocks from block_offset on, and out is this shard's share
 // Out: out   int32  [n_reads, num_classes]  zeroed by the caller; this
 //            kernel only adds into it
@@ -21,10 +21,11 @@
 //   padding rows, which are poisoned at every k-th base).
 //
 // Bound: random 32-byte sector reads of the table, one per probe word
-// (h words per valid window, cw*h when P=1); the code bytes stream
+// (h words per valid window when P>1; h rows of cw contiguous words when
+// P=1, read as vectors, kmer_probe.cuh); the code bytes stream
 // and the hash is a few dozen integer operations.  The bench geometries'
 // species and genus tables (~99 MB each) are twice the 50 MB L2, so most
-// probes go to HBM; smaller tables sit in L2.  Design: read 4-byte probe words,
+// probes go to HBM; smaller tables sit in L2.  Design: read the probe words,
 // never the whole 512 B block the TPU gathered (its gather-then-mask is
 // a TPU shape; the AND of the selected rows is the same value), skip the
 // table entirely for invalid windows, and count into shared-memory
@@ -55,6 +56,7 @@ struct Geom {
   xs::ProbeGeom probe;
 };
 
+template <int Kind>
 __global__ void reads_query_kernel(const uint8_t* __restrict__ codes,
                                    const uint32_t* __restrict__ table,
                                    int32_t* __restrict__ out, const Geom g) {
@@ -73,7 +75,7 @@ __global__ void reads_query_kernel(const uint8_t* __restrict__ codes,
     const int64_t j = (w - r * g.nkk) * g.step;
     uint32_t hi, lo;
     if (!xs::canonical_window(codes + r * g.read_len + j, g.probe.k, hi, lo)) continue;
-    xs::probe_and_count(table, g.probe, hi, lo, s_counts + (r - r0) * num_classes);
+    xs::probe_and_count<Kind>(table, g.probe, hi, lo, s_counts + (r - r0) * num_classes);
   }
 
   __syncthreads();
@@ -104,8 +106,23 @@ extern "C" int xs_reads_query(const void* codes, const void* table, void* out,
   if (total <= 0) return 0;
   const int64_t grid = (total + windows_per_block - 1) / windows_per_block;
   const size_t shared = size_t(max_reads) * size_t(num_classes) * sizeof(int32_t);
-  reads_query_kernel<<<unsigned(grid), kThreads, shared, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(codes), static_cast<const uint32_t*>(table),
-      static_cast<int32_t*>(out), g);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const uint8_t*>(codes);
+  const auto* t = static_cast<const uint32_t*>(table);
+  auto* o = static_cast<int32_t*>(out);
+  // one instantiation per probe path, so each carries only its registers
+  switch (xs::probe_kind(fields_per_word, class_words)) {
+    case xs::kFields:
+      reads_query_kernel<xs::kFields><<<unsigned(grid), kThreads, shared, s>>>(c, t, o, g);
+      break;
+    case xs::kRows4:
+      reads_query_kernel<xs::kRows4><<<unsigned(grid), kThreads, shared, s>>>(c, t, o, g);
+      break;
+    case xs::kRows2:
+      reads_query_kernel<xs::kRows2><<<unsigned(grid), kThreads, shared, s>>>(c, t, o, g);
+      break;
+    default:
+      reads_query_kernel<xs::kRows1><<<unsigned(grid), kThreads, shared, s>>>(c, t, o, g);
+  }
   return int(cudaGetLastError());
 }

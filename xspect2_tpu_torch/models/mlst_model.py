@@ -16,7 +16,8 @@ FASTA (class name = file name up to the first ".", e.g.
 
 On the device, the loci whose pieces coincide (equal average allele
 length and engine chunk) share one prepared batch and one packed wire,
-ALL of them are queried by one launch of the multi-index kernel
+ALL of them are queried by one call of the multi-index kernel, one
+launch for each probe path among them
 (:func:`~xspect2_tpu_torch.ops.query.make_multi_packed_query`), and the
 piece-score reduction runs on the device, so the fetch is [C] or
 [genomes, C] per locus, not [pieces, C].

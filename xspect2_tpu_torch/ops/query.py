@@ -32,7 +32,7 @@ locus; :func:`make_multi_packed_query`):
    wire once;
 2. :func:`multi_records_query` (kernel K5,
    ``csrc/multi_records_query.cu``) counts per-record, per-class hits
-   against every table in one launch;
+   against every table, in one launch per probe path among them;
 3. :func:`reduce_record_counts` (kernel K6, ``csrc/segment_reduce.cu``)
    reduces the counts over the records on the device (thresholded
    totals, the first record, or thresholded totals per segment), so the
@@ -66,7 +66,8 @@ _PLAIN_POSITIONS = 1 << 20
 # shared-memory bytes for K2's per-block (read, class) and K3's
 # per-block (record, class) counters
 _SHARED_COUNTER_BYTES = 32768
-# kept windows handled by one K2 thread block, positions by one K3 or K5 block
+# kept windows handled by one K2 thread block, positions by one K3 or K5
+# block (at most kMaxBlockPositions of csrc/records_block.cuh)
 _WINDOWS_PER_BLOCK = 2048
 # record slots summed by one K6 thread block
 _REDUCE_ROWS = 32
@@ -388,6 +389,24 @@ def _check_geometry(codes, table, k, step, num_blocks, rows_per_block, class_wor
         )
 
 
+def table_tensor(index: BlockedBitSlicedIndex, device) -> torch.Tensor:
+    """The index's table on ``device`` as the query kernels take it: a
+    copy of ``index.table`` in its own row-major layout, int32 (uint32
+    bits) [num_blocks, rows_per_block * class_words], so one probe row is
+    ``class_words`` contiguous words."""
+    words = np.asarray(index.table).view(np.int32).reshape(index.num_blocks, -1)
+    return torch.tensor(words, device=device)
+
+
+def _aligned(table: torch.Tensor) -> torch.Tensor:
+    """``table`` contiguous; it must be 16-byte aligned, since the kernels
+    read probe rows with vector loads."""
+    table = table.contiguous()
+    if table.data_ptr() % 16:
+        raise ValueError("the table must start at a 16-byte aligned address")
+    return table
+
+
 def _counter_rows(num_classes: int) -> int:
     """Reads (K2) or records (K3) whose per-class counters fit the
     shared-memory budget of one thread block."""
@@ -428,7 +447,9 @@ def _canonical_windows_plain(codes: torch.Tensor, k: int, nk: int):
 def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
                      num_hashes, fields_per_word, local_blocks=None, block_offset=0):
     """The AND of each k-mer's probe words: one int64 word per class word
-    (masked to the field width when P > 1).
+    (masked to the field width when P > 1).  ``flat`` is the row-major
+    table (:func:`table_tensor`) flattened: word ``w`` of row ``r`` of
+    block ``b`` at ``(b * rows_per_block + r) * class_words + w``.
 
     In owned-block mode (``local_blocks`` set) ``flat`` holds only the
     ``local_blocks`` blocks from ``block_offset`` on; a k-mer whose block
@@ -446,14 +467,14 @@ def _and_words_plain(hi, lo, flat, *, num_blocks, rows_per_block, class_words,
         local = block - block_offset
         owned = (local >= 0) & (local < local_blocks)
         block = local.clamp(0, local_blocks - 1)
-    base = block * (class_words * rpb)
+    base = block * (rpb * class_words)
     if P == 1:
+        rows = [base + (((b + i * c) & MASK32) & (rpb - 1)) * class_words for i in range(num_hashes)]
         words = []
         for w in range(class_words):
             acc = torch.full_like(a, MASK32)
-            for i in range(num_hashes):
-                row = ((b + i * c) & MASK32) & (rpb - 1)
-                acc &= flat[base + w * rpb + row]
+            for row in rows:
+                acc &= flat[row + w]
             words.append(acc if owned is None else torch.where(owned, acc, 0))
         return words
     g = (b >> 24) & (P - 1)
@@ -532,8 +553,8 @@ def reads_query(
     """Per-read, per-class hit counts of uniform reads: [N, C].
 
     ``codes`` is uint8 [N, L] (>3 = invalid base), ``table`` the index's
-    device layout (:meth:`BlockedBitSlicedIndex.device_table`) as int32
-    [num_blocks, class_words * rows_per_block].  Windows
+    row-major table as int32 [num_blocks, rows_per_block * class_words]
+    (:func:`table_tensor`).  Windows
     ``0, step, 2*step, ...`` of each read are counted; a window holding
     an invalid base counts nothing.  The result is uint8 when every
     count fits (``ceil((L-k+1)/step) <= 255``), else int32.
@@ -558,7 +579,7 @@ def reads_query(
     if table.device != codes.device:
         raise ValueError("codes and table must share one device")
     codes = codes.contiguous()
-    table = table.contiguous()
+    table = _aligned(table)
     nkk = -(-(read_len - k + 1) // step)
     # a block's windows span at most (wpb-1)//nkk + 2 reads, whose
     # counters must fit the shared-memory budget
@@ -726,9 +747,10 @@ def records_query(
 
     ``codes`` is uint8 [n_pos + k - 1] (>3 = invalid base), ``rec_ids``
     int32 [n_pos], ``valid`` bool or uint8 [n_pos], ``table`` the
-    index's device layout as int32.  The window starting at each valid
-    position counts for its record unless it holds an invalid base; a
-    record id outside ``[0, max_records)`` counts nothing.
+    index's row-major table as int32 (:func:`table_tensor`).  The window
+    starting at each valid position counts for its record unless it holds
+    an invalid base; a record id outside ``[0, max_records)`` counts
+    nothing.
     ``min_record_len``, the batch's shortest record, sizes the kernel's
     thread blocks so that most count in shared memory; the counts do
     not depend on it.  ``local_blocks`` and ``block_offset`` select the
@@ -746,7 +768,7 @@ def records_query(
     for t in (rec_ids, valid, table):
         if t.device != codes.device:
             raise ValueError("codes, rec_ids, valid and table must share one device")
-    codes, rec_ids, table = codes.contiguous(), rec_ids.contiguous(), table.contiguous()
+    codes, rec_ids, table = codes.contiguous(), rec_ids.contiguous(), _aligned(table)
     valid = valid.contiguous().view(torch.uint8)
     ppb, rows = _block_range(num_classes, max_records, min_record_len, k)
     n_pos = rec_ids.numel()
@@ -798,20 +820,33 @@ def multi_records_query_plain(tables, geoms, codes, rec_ids, valid, *, max_recor
     ]
 
 
+def _probe_kind(g: dict) -> int:
+    """The probe path of a geometry, numbered as ``probe_kind`` of
+    csrc/kmer_probe.cuh: field-packed words, or probe rows read as 1-,
+    2- or 4-word vectors."""
+    if g["fields_per_word"] > 1:
+        return 0
+    cw = g["class_words"]
+    return 3 if cw % 4 == 0 else 2 if cw % 2 == 0 else 1
+
+
 def multi_records_query(
     tables, geoms, codes, rec_ids, valid, *, max_records: int, min_record_len: int | None = None
 ):
     """Per-record, per-class hit counts of one flat batch against several
     index tables: a list of int32 [max_records, C_l], one per table.
 
-    ``tables`` are device layouts as int32, ``geoms`` their geometries
-    (:meth:`DeviceQueryEngine.geometry`); all share ``k``, everything
-    else is each table's own.  ``codes``, ``rec_ids`` and ``valid`` are
-    those of :func:`records_query`, and table l's counts equal
-    ``records_query`` on it.  At most :data:`MAX_TABLES` tables go into
-    one launch.  ``min_record_len``, the length of the batch's typical
-    record, sizes each table's thread blocks; the counts do not depend
-    on it.  The returned tensors are views of one buffer.
+    ``tables`` are row-major tables as int32 (:func:`table_tensor`),
+    ``geoms`` their geometries (:meth:`DeviceQueryEngine.geometry`); all
+    share ``k``, everything else is each table's own.  ``codes``,
+    ``rec_ids`` and ``valid`` are those of :func:`records_query`, and
+    table l's counts equal ``records_query`` on it.  At most
+    :data:`MAX_TABLES` tables go into one call; the kernel is launched
+    once for each probe path among them (:func:`_probe_kind`), so each
+    launch runs the build of its own path.  ``min_record_len``, the
+    length of the batch's typical record, sizes each table's thread
+    blocks; the counts do not depend on it.  The returned tensors are
+    views of one buffer.
     """
     tables, geoms = list(tables), list(geoms)
     _check_tables(tables, geoms)
@@ -826,27 +861,29 @@ def multi_records_query(
             raise ValueError("codes, rec_ids, valid and every table must share one device")
     codes, rec_ids = codes.contiguous(), rec_ids.contiguous()
     valid = valid.contiguous().view(torch.uint8)
-    tables = [t.contiguous() for t in tables]
+    tables = [_aligned(t) for t in tables]
     sizes = [max_records * g["num_classes"] for g in geoms]
     flat = torch.zeros(sum(sizes), dtype=torch.int32, device=codes.device)
     outs = [
         part.view(max_records, g["num_classes"]) for part, g in zip(flat.split(sizes), geoms)
     ]
-    rows = []
-    for g in geoms:
-        ppb, counter_rows = _block_range(g["num_classes"], max_records, min_record_len, k)
-        rows += [g[key] for key in _GEOM_KEYS] + [ppb, counter_rows]
-    n = len(tables)
     fn = _kernels.entry("multi_records_query")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
-    rc = fn(
-        codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), rec_ids.numel(), k,
-        max_records, n, (ctypes.c_void_p * n)(*(t.data_ptr() for t in tables)),
-        (ctypes.c_void_p * n)(*(o.data_ptr() for o in outs)),
-        (ctypes.c_int64 * len(rows))(*rows), stream,
-    )
-    _kernels.check("multi_records_query", rc)
-    multi_records_query.launches += 1
+    for kind in sorted({_probe_kind(g) for g in geoms}):
+        group = [l for l, g in enumerate(geoms) if _probe_kind(g) == kind]
+        rows = []
+        for l in group:
+            ppb, counter_rows = _block_range(geoms[l]["num_classes"], max_records, min_record_len, k)
+            rows += [geoms[l][key] for key in _GEOM_KEYS] + [ppb, counter_rows]
+        n = len(group)
+        rc = fn(
+            codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), rec_ids.numel(), k,
+            max_records, n, (ctypes.c_void_p * n)(*(tables[l].data_ptr() for l in group)),
+            (ctypes.c_void_p * n)(*(outs[l].data_ptr() for l in group)),
+            (ctypes.c_int64 * len(rows))(*rows), stream,
+        )
+        _kernels.check("multi_records_query", rc)
+        multi_records_query.launches += 1
     return outs
 
 
@@ -969,8 +1006,8 @@ def make_multi_packed_query(
     ``reduce_mode`` is None, else what :func:`reduce_record_counts`
     gives for that mode.  ``geoms`` are the tables' geometries,
     ``n_pos`` the batch's position count (``max_records`` is read off
-    ``offsets``).  One call launches K1 and K4 once, K5 once over all
-    tables and K6 once.
+    ``offsets``).  One call launches K1 and K4 once, K5 once for each
+    probe path among the tables and K6 once.
     """
     geoms = list(geoms)
     if reduce_mode is not None and reduce_mode not in REDUCE_MODES:
@@ -1007,7 +1044,7 @@ class DeviceQueryEngine:
         # counts), so both pad a batch alike
         cw = index.class_words
         self.chunk = min(chunk, max(8192, _next_pow2((1 << 19) // cw + 1) // 2))
-        self.table = torch.from_numpy(index.device_table().view(np.int32)).to(self.device)
+        self.table = table_tensor(index, self.device)
 
     def geometry(self) -> dict:
         """The index geometry as :func:`reads_query` and

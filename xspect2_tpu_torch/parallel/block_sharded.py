@@ -27,19 +27,21 @@ from xspect2_tpu_torch.parallel.sharded import ShardedClassifier
 
 
 def blk_table_shard(index: BlockedBitSlicedIndex, n_blk: int, coord: int) -> np.ndarray:
-    """The block shard ``coord`` of ``n_blk`` of the index's device table:
-    uint32 [local_blocks, class_words * rows_per_block], class-word
-    major.  The block stack is padded to a multiple of ``n_blk``; padding
-    blocks sit past ``hash % num_blocks`` and are never addressed."""
+    """The block shard ``coord`` of ``n_blk`` of the index's table: uint32
+    [local_blocks, rows_per_block * class_words], the blocks
+    ``[coord * local_blocks, (coord + 1) * local_blocks)`` of the
+    row-major table.  The block stack is padded to a multiple of
+    ``n_blk``; padding blocks sit past ``hash % num_blocks`` and are
+    never addressed."""
     blocks = index.num_blocks
     local_blocks = math.ceil(blocks / n_blk)
     b0 = coord * local_blocks
-    t3 = index.table.reshape(blocks, index.rows_per_block, index.class_words)
-    out = np.zeros((local_blocks, index.class_words, index.rows_per_block), dtype=np.uint32)
+    t2 = index.table.reshape(blocks, index.rows_per_block * index.class_words)
+    out = np.zeros((local_blocks, t2.shape[1]), dtype=np.uint32)
     b1 = min(blocks, b0 + local_blocks)
     if b1 > b0:
-        out[: b1 - b0] = t3[b0:b1].transpose(0, 2, 1)
-    return out.reshape(local_blocks, index.class_words * index.rows_per_block)
+        out[: b1 - b0] = t2[b0:b1]
+    return out
 
 
 class BlockShardedClassifier(ShardedClassifier):

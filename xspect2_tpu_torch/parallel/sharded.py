@@ -57,19 +57,20 @@ def _round2(x: torch.Tensor) -> torch.Tensor:
 
 
 def cls_table_shard(index: BlockedBitSlicedIndex, n_cls: int, coord: int) -> np.ndarray:
-    """The class-word shard ``coord`` of ``n_cls`` of the index's device
-    table: uint32 [num_blocks, cw_local * rows_per_block], class-word
-    major.  The class words are padded to a multiple of ``n_cls`` with
-    all-zero word columns (their classes never hit)."""
+    """The class-word shard ``coord`` of ``n_cls`` of the index's table:
+    uint32 [num_blocks, rows_per_block * cw_local], the slice of class
+    words ``[coord * cw_local, (coord + 1) * cw_local)`` of every row of
+    the row-major table.  The class words are padded to a multiple of
+    ``n_cls`` with all-zero word columns (their classes never hit)."""
     cw = index.class_words
     cw_local = math.ceil(cw / n_cls)
     w0 = coord * cw_local
     t3 = index.table.reshape(index.num_blocks, index.rows_per_block, cw)
-    out = np.zeros((index.num_blocks, cw_local, index.rows_per_block), dtype=np.uint32)
+    out = np.zeros((index.num_blocks, index.rows_per_block, cw_local), dtype=np.uint32)
     w1 = min(cw, w0 + cw_local)
     if w1 > w0:
-        out[:, : w1 - w0, :] = t3[:, :, w0:w1].transpose(0, 2, 1)
-    return out.reshape(index.num_blocks, cw_local * index.rows_per_block)
+        out[:, :, : w1 - w0] = t3[:, :, w0:w1]
+    return out.reshape(index.num_blocks, index.rows_per_block * cw_local)
 
 
 class ShardedClassifier:

@@ -108,6 +108,10 @@ def run(table_mb=50.0, classes=8, num_hashes=7, reads=65536, reads_per_chunk=819
         rng.integers(0, 2**32, size=(geom["num_blocks"], BLOCK_WORDS), dtype=np.uint64)
         .astype(np.uint32).view(np.int32)
     ).to(device)
+    # the gather feeds K8 blocks in the TPU's class-word-major layout; K2
+    # reads the same words in the index's row-major layout
+    row_major = table.view(-1, geom["class_words"], geom["rows_per_block"]).transpose(1, 2)
+    row_major = row_major.reshape(table.shape)
     codes = torch.from_numpy(rng.integers(0, 4, size=(reads, READ_LEN), dtype=np.uint8)).to(device)
     nk = READ_LEN - K + 1
 
@@ -129,7 +133,7 @@ def run(table_mb=50.0, classes=8, num_hashes=7, reads=65536, reads_per_chunk=819
           f"{reads} reads x {READ_LEN} bp, {reads_per_chunk} reads ({reads_per_chunk * nk} k-mers) per chunk",
           flush=True)
     want, k2_rate = bench(
-        lambda: query.reads_query(codes, table, step=1, **geom).to(torch.int32), "reads_query ")
+        lambda: query.reads_query(codes, row_major, step=1, **geom).to(torch.int32), "reads_query ")
     got, k8_rate = bench(
         lambda: gather_select_query(codes, table, geom, reads_per_chunk), "probe_select")
     equal = bool(torch.equal(got, want))
