@@ -22,7 +22,10 @@ width:
   ``classify_mlst`` on a FASTA of 4 Mbp genomes with one known allele
   per locus and a few short records (K1, K4, K5, K6);
 - xxh3 genus: the compat genus model fitted on the 32 Mbp genus genome,
-  then ``classify_genus`` on assemblies drawn from it (K7);
+  then ``classify_genus`` on assemblies drawn from it and on a FASTQ of
+  100,000 reads (K1, K4 and K7, which hashes on the card: one launch per
+  record batch); the filter's own count API on sampled contigs (host
+  hashing, the position-based K7);
 - sharded: ``xspect2_tpu_torch.parallel`` on the same tables and reads.
   The machine has one card, so every shard of each (data x blk) and
   (data x cls) mesh is evaluated in turn on it (K1-K4, K2 and K3 in
@@ -78,8 +81,9 @@ MLST_ALLELES = 1000
 ALLELE_LEN = 450
 MLST_GENOMES = 8
 MLST_SHORT = 3
-# xxh3 genus: assemblies classified through the compat model
+# xxh3 genus: assemblies and reads classified through the compat model
 XXH3_ASSEMBLIES = 2
+XXH3_READS = 100_000
 # kernel wrapper -> (source, the TPU program it replaces)
 KERNELS = {
     "unpack_2bit": ("xspect2_tpu_torch/csrc/unpack_2bit.cu", "xspect2_tpu/ops/query.py:751"),
@@ -89,6 +93,7 @@ KERNELS = {
     "multi_records_query": ("xspect2_tpu_torch/csrc/multi_records_query.cu", "xspect2_tpu/ops/query.py:854"),
     "reduce_record_counts": ("xspect2_tpu_torch/csrc/segment_reduce.cu", "xspect2_tpu/ops/query.py:909"),
     "bloom_count": ("xspect2_tpu_torch/csrc/bloom_count.cu", "xspect2_tpu/core/compat.py:205"),
+    "xxh3_records_count": ("xspect2_tpu_torch/csrc/xxh3_bloom.cu", "xspect2_tpu/core/compat.py:205"),
     "probe_select": ("xspect2_tpu_torch/csrc/probe_select.cu", "tools/microbench_pallas.py:74"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
@@ -100,12 +105,16 @@ INT_OPS_PER_S = 67e12
 # NVLink to the other cards of a host, each way (same data sheet): the rate
 # a collective between cards cannot beat
 NVLINK_BYTES_PER_S = 450e9
-# estimated integer operations of a records window (K3, K5): ~30 to pack
-# and canonicalize it from the codes staged 2-bit packed in shared memory,
-# ~60 to hash it; per table ~10 for its block and row addresses and 3 per
-# probe word.  K2 packs each window base by base: ~6 per base.
+# estimated integer operations of a window (K2, K3, K5): ~30 to pack and
+# canonicalize it from the codes staged 2-bit packed in shared memory, ~60
+# to hash it; per table ~10 for its block and row addresses and 3 per probe
+# word.  K7 (records route): ~30 to pack, ~50 for the ASCII words, ~40 for
+# XXH3 (64-bit products count as several 32-bit operations) a window, and
+# ~25 a probe for its 64-bit multiply-add, reduction and bit test.
 WINDOW_OPS = 90
 TABLE_OPS = 10
+XXH3_OPS = 120
+PROBE64_OPS = 25
 
 
 def log(msg: str) -> None:
@@ -159,7 +168,7 @@ def wrapper(name: str):
     """The kernel wrapper ``name``, which carries the launch count."""
     from xspect2_tpu_torch.ops import bloom, probe_select, query
 
-    module = {"bloom_count": bloom, "probe_select": probe_select}.get(name, query)
+    module = {"bloom_count": bloom, "xxh3_records_count": bloom, "probe_select": probe_select}.get(name, query)
     return getattr(module, name)
 
 
@@ -252,14 +261,19 @@ def check_kernels(rng, errors):
     """Each kernel equals its plain version on the card, exactly."""
     from xspect2_tpu_torch.ops import query
 
-    cases = [  # (classes, num_hashes, read_len, step)
+    cases = [  # (classes, num_hashes, read_len, step); K2 stages its reads' codes,
+        # so also read lengths that are not multiples of 16, steps 1-5 and
+        # reads longer than the 2,048-position stage
         (8, 2, 150, 1), (8, 2, 300, 4), (1, 3, 150, 2), (1, 3, 300, 1),
         (40, 7, 300, 1), (40, 7, 150, 2), (512, 3, 150, 4), (512, 3, 300, 2),
+        (8, 2, 133, 3), (1, 3, 157, 5), (40, 7, 99, 4), (512, 3, 251, 5),
+        (8, 2, 2100, 1), (1, 3, 2100, 3), (40, 7, 5003, 2), (512, 3, 2049, 5),
     ]
     dev = torch.device("cuda")
     for num_classes, h, read_len, step in cases:
         idx = random_index(num_classes, h, rng)
-        n, n_pad = 3000, 3072  # 72 padding rows, poisoned by the wire
+        n = 3000 if read_len <= 300 else 200
+        n_pad = n + 72  # 72 padding rows, poisoned by the wire
         reads = rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)
         reads[rng.integers(0, n, 40), rng.integers(0, read_len, 40)] = 255
         wire = [torch.from_numpy(a).to(dev) for a in query.pack_reads_wire(reads, K, n_pad)]
@@ -290,13 +304,16 @@ def check_kernels(rng, errors):
 
 
 def check_multi_kernels(rng, errors):
-    """K5, K6 and K7 equal their plain versions on the card, exactly: K5
+    """K5, K6 and both K7 equal their plain versions on the card, exactly: K5
     over tables of three geometries in one call, one launch for each
     probe path (field-packed C=4, two class words, 32 class words), also
     against K3 per table, on the shared-counter and the global-atomic
     path; K6 in its three modes with
-    thresholds 50 and -1 and segment ids outside the range; K7 against
-    the host count of a filter with 7 probes."""
+    thresholds 50 and -1 and segment ids outside the range; the
+    position-based K7 against the host count of a filter with 7 probes; the
+    records-route K7 against its plain version and the host count at k = 5,
+    12, 21 and 31 (the three XXH3 length paths), on the shared-counter and
+    the global-atomic path."""
     from xspect2_tpu_torch.core import compat, dna
     from xspect2_tpu_torch.ops import bloom, query
 
@@ -359,6 +376,36 @@ def check_multi_kernels(rng, errors):
         errors["bloom_count"] = max(errors["bloom_count"], abs(got - host), abs(got - plain))
         log(f"  bloom_count vs host and plain: {n} k-mers, h=7: kernel {got}, host {host}, plain {plain}")
     require(errors["bloom_count"] == 0, "bloom_count disagrees with the host count or its plain version")
+
+    for k in (5, 12, 21, 31):
+        kfilt = compat.XXH3BloomFilter.for_items(len(genome) - k + 1, 0.01, k, device=dev)
+        kfilt.insert_packed(*dna.canonical_kmers(genome, k))
+        records = []
+        for i in range(600):
+            n = int(k + 1 + rng.pareto(1.0) * 60) if i % 7 else 5000
+            n = min(n, 20_000)
+            at = int(rng.integers(0, len(genome) - n))
+            c = genome[at : at + n].copy() if i % 4 else rng.integers(0, 4, size=n, dtype=np.uint8)
+            if i % 5 == 0:
+                c[rng.integers(0, n, 2)] = 255
+            records.append((f"r{i}", c))
+        batch = query.prepare_batch(records, k, step=1 + k % 3)
+        max_records = query._next_pow2(max(8, batch.num_records))
+        codes, rec, valid = query.restore_records_wire(
+            *query.upload_records_wire(batch, max_records, dev), batch.num_positions, k=k, step=batch.step)
+        geom = dict(max_records=max_records, k=k, num_bits=kfilt.num_bits, num_hashes=kfilt.num_hashes)
+        words = kfilt.device_words()
+        want = bloom.xxh3_records_count_plain(words, codes, rec, valid, **geom)
+        err = 0
+        for hint in (k + 1, 10**6):  # 10**6: 2 counter rows, the global-atomic path
+            got = bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=hint, **geom)
+            err = max(err, int((got - want).abs().max()))
+        host = [kfilt.count_hits_host(*dna.canonical_kmers(c, k, step=batch.step)) for _, c in records[:60]]
+        err = max(err, int(np.abs(got[:60].cpu().numpy() - host).max()))
+        errors["xxh3_records_count"] = max(errors["xxh3_records_count"], err)
+        log(f"  xxh3_records_count vs plain and host: k={k} step={batch.step}, {batch.num_records} records, "
+            f"h={kfilt.num_hashes}: max |err| {err}, hits {int(got.sum())}")
+    require(errors["xxh3_records_count"] == 0, "xxh3_records_count disagrees with its plain version or the host count")
 
 
 # ---------------------------------------------------------------- phases 3-4
@@ -486,10 +533,11 @@ def time_kernels(idx, reads, card, errors):
 
 def reads_bound(idx, codes, out):
     """K2's bound on uint8 reads ``codes`` [n, L] (int on the card) giving
-    ``out``: windows without an N reach the table and read their probe
-    words, each 32 B sector they touch read once (bytes); ~6 per base to
-    pack and canonicalize, ~60 to hash, 3 per probe word (operations).
-    ``idx`` needs the geometry attributes of an index."""
+    ``out``, at step 1: windows without an N reach the table and read their
+    probe words, each 32 B sector they touch read once (bytes);
+    WINDOW_OPS + TABLE_OPS a counted window (canonicalized from the staged
+    codes and hashed) and 3 per probe word (operations).  ``idx`` needs
+    the geometry attributes of an index."""
     from xspect2_tpu_torch.ops import query
 
     n, read_len = codes.shape
@@ -505,7 +553,7 @@ def reads_bound(idx, codes, out):
     probes = idx.num_hashes * (idx.class_words if idx.fields_per_word == 1 else 1)
     nbytes = codes.numel() + run_sectors * SECTOR_BYTES + out.numel() * out.element_size()
     no_reuse = nbytes + (window_sectors - run_sectors) * SECTOR_BYTES
-    ops = n * nk * (6 * K + 60) + counted * probes * 3
+    ops = counted * (WINDOW_OPS + TABLE_OPS + 3 * probes)
     return dict(bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3, ops_ms=ops / INT_OPS_PER_S * 1e3,
                 no_reuse_ms=no_reuse / HBM_BYTES_PER_S * 1e3, counted=counted, probes=probes,
                 window_sectors=window_sectors, run_sectors=run_sectors)
@@ -1429,25 +1477,83 @@ def run_mlst(rng, card, errors):
 
 
 def bloom_bound(pos, mask, num_hashes):
-    """K7's bound on these inputs: ``(bytes_ms, ops_ms, sectors)``; the
-    positions and mask read once, each 32 B filter sector a probe touches
-    once, one count written; ~6 operations per probe (estimated)."""
+    """The position-based K7's bound on these inputs: ``(bytes_ms, ops_ms,
+    sectors)``; the positions and mask read once, each 32 B filter sector
+    a probe touches once, one count written; ~6 operations per probe
+    (estimated)."""
     sectors = int(torch.unique((pos[mask].long() & 0xFFFFFFFF) >> 8).numel())  # 32 B = 256 filter bits
     nbytes = pos.numel() * 4 + mask.numel() + sectors * SECTOR_BYTES + 4
     ops = int(mask.sum()) * num_hashes * 6
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3, sectors
 
 
-def run_xxh3_genus(genus_genome, assemblies, card, errors):
-    """Fit the xxh3 compat genus model on the genus genome, classify
-    assemblies drawn from it: every N-free window hits, counts equal the
-    host's; then K7 at the longest contig's shape, and at every launch of
-    the run summed."""
+def xxh3_bound(filt, codes, rec, valid, n_pos, max_records):
+    """The records-route K7's bound on these inputs: the codes, record ids
+    and validity read once, each 32 B filter sector a probe touches once,
+    the counts written once (bytes); ~XXH3_OPS a counted window and
+    ~PROBE64_OPS a probe it evaluates up to its first clear bit
+    (operations).  Returns ``(bytes_ms, ops_ms, counted, probes, sectors)``."""
+    from xspect2_tpu_torch.ops import bloom, query
+
+    words = filt.device_words().long() & 0xFFFFFFFF
+    seen = torch.zeros(words.numel() // 8 + 1, dtype=torch.bool, device=codes.device)
+    counted = probes = 0
+    for p0 in range(0, n_pos, 1 << 21):
+        p1 = min(n_pos, p0 + (1 << 21))
+        hi, lo, bad = query._canonical_windows_plain(codes[None, p0 : p1 + K - 1].long(), K, p1 - p0)
+        r = rec[p0:p1]
+        keep = valid[p0:p1] & (r >= 0) & (r < max_records) & ~bad[0]
+        pos = bloom.probe_positions_plain(
+            bloom.xxh3_digests_plain(hi[0, keep], lo[0, keep], K), filt.num_bits, filt.num_hashes)
+        clear = ((words[pos >> 5] >> (pos & 31)) & 1) == 0
+        # probes evaluated: up to and with the first clear bit, all when none is
+        first = torch.where(clear.any(dim=1), clear.int().argmax(dim=1), filt.num_hashes - 1)
+        used = torch.arange(filt.num_hashes, device=pos.device) <= first[:, None]
+        seen[pos[used] >> 8] = True
+        counted += int(keep.sum())
+        probes += int(used.sum())
+        del hi, lo, bad, pos, clear, used
+    sectors = int(seen.sum())
+    nbytes = (n_pos + K - 1) + 5 * n_pos + sectors * SECTOR_BYTES + 4 * max_records
+    ops = counted * XXH3_OPS + probes * PROBE64_OPS
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3, counted, probes, sectors
+
+
+def time_xxh3_batch(filt, batch):
+    """The records-route K7 on one prepared batch as the model launches it:
+    ``(kernel ms, plain ms, bound dict, counts, plain counts)``."""
+    from xspect2_tpu_torch.ops import bloom, query
+
+    words = filt.device_words()
+    max_records = query._next_pow2(max(8, batch.num_records))
+    codes, rec, valid = query.restore_records_wire(
+        *query.upload_records_wire(batch, max_records, words.device), batch.num_positions, k=K, step=batch.step)
+    geom = dict(max_records=max_records, k=K, num_bits=filt.num_bits, num_hashes=filt.num_hashes)
+    shortest = int(np.diff(batch.offsets).min())
+    got = bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=shortest, **geom)
+    plain = bloom.xxh3_records_count_plain(words, codes, rec, valid, **geom)
+    ms = cuda_ms(lambda: bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=shortest, **geom), 10)
+    plain_ms = cuda_ms(lambda: bloom.xxh3_records_count_plain(words, codes, rec, valid, **geom), 1, warm=False)
+    b = xxh3_bound(filt, codes, rec, valid.bool(), batch.num_positions, max_records)
+    bound = dict(bytes_ms=b[0], ops_ms=b[1], counted=b[2], probes=b[3], sectors=b[4])
+    return ms, plain_ms, bound, got[: batch.num_records], plain[: batch.num_records]
+
+
+def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
+    """Fit the xxh3 compat genus model on the genus genome; classify
+    assemblies drawn from it and a FASTQ of 100,000 reads: K7 hashes on the
+    card, one launch per record batch; every N-free window hits, counts
+    equal the host's.  The filter's own count API (host hashing and the
+    position-based K7) on sampled contigs.  Then the new K7 at one 4 Mbp
+    assembly against its bound, its plain version and the old path (host
+    hashing and one position-based K7 launch a contig), and at every batch
+    of the run."""
     from xspect2_tpu_torch import classify
     from xspect2_tpu_torch.core import dna
     from xspect2_tpu_torch.definitions import get_xspect_model_path
+    from xspect2_tpu_torch.io.fasta import get_record_iterator
     from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
-    from xspect2_tpu_torch.ops import bloom
+    from xspect2_tpu_torch.ops import bloom, query
 
     base = WORK / "genus_x"
     in_dir = base / "in"
@@ -1463,17 +1569,29 @@ def run_xxh3_genus(genus_genome, assemblies, card, errors):
         f"({filt.words.nbytes / 1e6:.1f} MB), h={filt.num_hashes}, host hashing and insert {time.time() - t0:.1f} s")
     require(filt.num_hashes == 7, "the xxh3 genus filter at fpr 0.01 does not take 7 probes")
 
+    def batches_of(path):  # the record batches predict makes of a file
+        return sum(1 for _ in model._iter_record_batches(get_record_iterator(path)))
+
+    # assemblies: one batch each
     assemblies = assemblies[:XXH3_ASSEMBLIES]
     total_bases = sum(write_fasta(in_dir / f"gasm{a}.fasta", contigs) for a, contigs in enumerate(assemblies))
+    n_batches = sum(batches_of(in_dir / f"gasm{a}.fasta") for a in range(len(assemblies)))
+    sampled = [sorted(contigs, key=lambda rc: len(rc[1]))[:3] for contigs in assemblies]
     out = base / "res.json"
     reset_launches()
     t0 = time.time()
     classify.classify_genus("SmokeX", in_dir, out, device="cuda")
     e2e = time.time() - t0
+    # the filter's own API (the JAX package's count_hits_device): host hashing, position-based K7
+    api_counts = [[filt.count_hits_sequence(seq_str(c)) for _, c in picks] for picks in sampled]
     launches = read_launches()
-    log(f"  xxh3 genus: kernel launches {launches}")
-    require(launches["bloom_count"] == sum(len(c) for c in assemblies), "xxh3 genus: bloom_count was not launched once per contig")
-    require(all(v == 0 for name, v in launches.items() if name != "bloom_count"), "xxh3 genus launched another path's kernel")
+    log(f"  xxh3 genus: kernel launches {launches} ({n_batches} record batches)")
+    require(launches["xxh3_records_count"] == launches["unpack_2bit"] == launches["records_wire"] == n_batches,
+            "xxh3 genus: K1, K4 and K7 were not launched once per record batch")
+    require(launches["bloom_count"] == sum(len(p) for p in sampled), "xxh3 genus: count_hits_sequence did not launch bloom_count")
+    require(all(v == 0 for name, v in launches.items() if name not in
+                ("xxh3_records_count", "unpack_2bit", "records_wire", "bloom_count")),
+            "xxh3 genus launched another path's kernel")
     checked = 0
     for a, contigs in enumerate(assemblies):
         res = json.loads((base / f"res_{a + 1}.json").read_text(encoding="utf-8"))
@@ -1484,52 +1602,107 @@ def run_xxh3_genus(genus_genome, assemblies, card, errors):
             clean = int(((bad[starts + K] - bad[starts]) == 0).sum())
             require(res["hits"][cid] == {"smokex": clean}, f"xxh3 gasm{a}: {cid} missed a window")
             require(res["num_kmers"][cid] == len(c) - K + 1, f"xxh3 gasm{a}: num_kmers of {cid}")
-        for i in np.argsort([len(c) for _, c in contigs])[:3]:
-            cid, c = contigs[i]
+        for (cid, c), api in zip(sampled[a], api_counts[a]):
             host = filt.count_hits_host(*dna.canonical_kmers(c, K))
-            require(res["hits"][cid]["smokex"] == host, f"xxh3 gasm{a}: {cid} differs from the host count")
+            require(res["hits"][cid]["smokex"] == host == api, f"xxh3 gasm{a}: {cid} differs from the host count")
             checked += 1
     log(f"  end-to-end [{card}] xxh3 genus assemblies: {len(assemblies)} assemblies ({total_bases} bases) in {e2e:.2f} s, "
         f"{len(assemblies) / e2e:.2f} assemblies/s, {total_bases / e2e / 1e6:.2f} M bases/s; every N-free window of "
-        f"every contig hit, {checked} sampled contigs equal count_hits_host")
+        f"every contig hit, {checked} sampled contigs equal count_hits_host and count_hits_sequence")
 
-    # K7 at the longest contig: time, bound, plain time
-    dev = torch.device("cuda")
-    _, longest = max(assemblies[0], key=lambda rc: len(rc[1]))
+    # reads: many short records a batch, shared counters
+    reads, _ = simulate_reads(genus_genome, XXH3_READS, rng)
+    fastq = base / "reads.fastq"
+    write_fastq(fastq, reads)
+    r_batches = batches_of(fastq)
+    reset_launches()
     t0 = time.time()
+    classify.classify_genus("SmokeX", fastq, base / "reads.json", device="cuda")
+    r_e2e = time.time() - t0
+    r_launches = read_launches()
+    log(f"  xxh3 genus reads: kernel launches {r_launches} ({r_batches} record batches)")
+    require(r_launches["xxh3_records_count"] == r_launches["unpack_2bit"] == r_launches["records_wire"] == r_batches
+            and r_launches["bloom_count"] == 0, "xxh3 genus reads: K1, K4 and K7 were not launched once per record batch")
+    add_launches(launches, r_launches)
+    hits = json.loads((base / "reads.json").read_text(encoding="utf-8"))["hits"]
+    require(len(hits) == XXH3_READS, f"xxh3 genus reads: {len(hits)} records in the result")
+    counts = np.array([hits[f"r{i:07d}"]["smokex"] for i in range(XXH3_READS)])
+    clean = (reads <= 3).all(axis=1)
+    require(bool((counts[clean] == READ_LEN - K + 1).all()), "xxh3 genus reads: a read without an N missed a window")
+    sample = rng.choice(XXH3_READS, size=SAMPLE, replace=False)
+    host = [filt.count_hits_host(*dna.canonical_kmers(reads[i], K)) for i in sample]
+    require(np.array_equal(counts[sample], host), "xxh3 genus reads: counts differ from count_hits_host")
+    log(f"  end-to-end [{card}] xxh3 genus reads: {XXH3_READS} reads in {r_e2e:.2f} s, {XXH3_READS / r_e2e:.0f} reads/s; "
+        f"every read without an N hit every window, {SAMPLE} sampled reads equal count_hits_host")
+
+    # the new K7 at one 4 Mbp assembly: time, bound, plain time; the old path on it
+    contigs = assemblies[0]
+    batch = query.prepare_batch(contigs, K)
+    ms, plain_ms, b, got, plain = time_xxh3_batch(filt, batch)
+    err = int((got - plain).abs().max())
+    errors["xxh3_records_count"] = max(errors["xxh3_records_count"], err)
+    require(err == 0, "xxh3_records_count disagrees with its plain version at one 4 Mbp assembly")
+    bound = max(b["bytes_ms"], b["ops_ms"])
+    torch.cuda.synchronize()
+    t0 = time.time()
+    old = [filt.count_hits_device(*dna.canonical_kmers(c, K)) for _, c in contigs]
+    old_s = time.time() - t0
+    require(old == got.tolist(), "the old path (host hashing, bloom_count per contig) differs from the new K7")
+    log(f"  timing [{card}] xxh3_records_count (one 4 Mbp assembly: {batch.num_records} contigs, {batch.num_positions} "
+        f"positions, {b['counted']} windows hashed, {b['probes']} probes evaluated): {ms:.4f} ms, bound {bound:.4f} ms "
+        f"(bytes {b['bytes_ms']:.4f} with each of the {b['sectors']} filter sectors touched read once, operations "
+        f"{b['ops_ms']:.4f}), plain {plain_ms:.4f} ms; the old path on the same contigs (host hashing, one "
+        f"position-based launch and fetch a contig) {old_s * 1e3:.1f} ms on the host clock")
+
+    # the position-based K7 at the longest contig: time, bound, plain time
+    dev = torch.device("cuda")
+    _, longest = max(contigs, key=lambda rc: len(rc[1]))
     hi, lo, valid = dna.canonical_kmers(longest, K)
-    pos_host = filt._positions(hi, lo, valid).astype(np.uint32)
-    hash_s = time.time() - t0
-    words = torch.from_numpy(filt.words.view(np.int32)).to(dev)
-    pos = torch.from_numpy(pos_host.view(np.int32)).to(dev)
+    words = filt.device_words()
+    pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(dev)
     mask = torch.from_numpy(valid).to(dev)
-    got = int(bloom.bloom_count(words, pos, mask))
-    plain = int(bloom.bloom_count_plain(words, pos, mask))
-    errors["bloom_count"] = max(errors["bloom_count"], abs(got - plain), abs(got - filt.count_hits_host(hi, lo, valid)))
-    require(errors["bloom_count"] == 0, "bloom_count disagrees at the main path's shape")
+    k7_got = int(bloom.bloom_count(words, pos, mask))
+    k7_plain = int(bloom.bloom_count_plain(words, pos, mask))
+    errors["bloom_count"] = max(errors["bloom_count"], abs(k7_got - k7_plain),
+                                abs(k7_got - filt.count_hits_host(hi, lo, valid)))
+    require(errors["bloom_count"] == 0, "bloom_count disagrees at the longest contig")
     k7_ms = cuda_ms(lambda: bloom.bloom_count(words, pos, mask), 20)
-    k7_plain = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
+    k7_plain_ms = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
     k7_bytes_ms, k7_ops_ms, sectors = bloom_bound(pos, mask, filt.num_hashes)
-    # and at every launch of the run: one per contig
-    per_launch = []
-    for contigs in assemblies:
-        for _, c in contigs:
+    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {k7_ms:.4f} ms, "
+        f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
+        f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain_ms:.4f} ms")
+    # its launches of the run: one per sampled contig of count_hits_sequence
+    api_gap = 0.0
+    for picks in sampled:
+        for _, c in picks:
             c_hi, c_lo, c_valid = dna.canonical_kmers(c, K)
             p = torch.from_numpy(filt._positions(c_hi, c_lo, c_valid).astype(np.uint32).view(np.int32)).to(dev)
             m = torch.from_numpy(c_valid).to(dev)
-            per_launch.append((cuda_ms(lambda: bloom.bloom_count(words, p, m), 3), max(bloom_bound(p, m, filt.num_hashes)[:2])))
-    launch_ms, launch_bound = (sum(x) for x in zip(*per_launch))
-    log(f"  timing [{card}] bloom_count at each of its {len(per_launch)} launches of the run (one per contig): "
-        f"{launch_ms:.4f} ms in all, bound {launch_bound:.4f} ms in all, gap {launch_ms - launch_bound:.4f} ms")
-    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {k7_ms:.4f} ms, "
-        f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
-        f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain:.4f} ms; hashing these k-mers on the host "
-        f"took {hash_s:.3f} s")
+            api_gap += cuda_ms(lambda: bloom.bloom_count(words, p, m), 3) - max(bloom_bound(p, m, filt.num_hashes)[:2])
+
+    # the new K7 at every batch of the run, at its own shape
+    run_gap, shapes = 0.0, []
+    for path in [in_dir / f"gasm{a}.fasta" for a in range(len(assemblies))] + [fastq]:
+        for recs in model._iter_record_batches(get_record_iterator(path)):
+            bt = query.prepare_batch([(r.id, dna.encode(r.seq)) for r in recs], K)
+            t_ms, _, tb, t_got, t_plain = time_xxh3_batch(filt, bt)
+            errors["xxh3_records_count"] = max(errors["xxh3_records_count"], int((t_got - t_plain).abs().max()))
+            run_gap += t_ms - max(tb["bytes_ms"], tb["ops_ms"])
+            shapes.append(f"{bt.num_records} records {t_ms:.4f} ms")
+    require(errors["xxh3_records_count"] == 0, "xxh3_records_count disagrees with its plain version at a batch of the run")
+    log(f"  timing [{card}] xxh3_records_count at each of its {len(shapes)} launches of the run: {'; '.join(shapes)}; "
+        f"time less bound summed {run_gap:.4f} ms")
     return launches, {
+        "xxh3_records_count": dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by="bytes" if b["bytes_ms"] >= b["ops_ms"] else "operations", library_ms=None,
+            run_gap_ms=run_gap, old_path_ms=old_s * 1e3,
+        ),
         "bloom_count": dict(
-            ms=k7_ms, plain_ms=k7_plain, bound_ms=max(k7_bytes_ms, k7_ops_ms),
+            ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=max(k7_bytes_ms, k7_ops_ms),
             bound_by="bytes" if k7_bytes_ms >= k7_ops_ms else "operations", library_ms=None,
-            run_gap_ms=launch_ms - launch_bound,
+            run_gap_ms=api_gap,
         ),
     }
 
@@ -2041,8 +2214,9 @@ def main() -> int:
         f"{GENOME_LEN} bp (depth cut: the genome count) and {MLST_SHORT} short records")
     mlst_launches, mlst_timings = run_mlst(rng, card, errors)
 
-    log(f"phase 8: xxh3 compat genus model over the 32 Mbp genus genome, {XXH3_ASSEMBLIES} assemblies")
-    x_launches, x_timings = run_xxh3_genus(genus_genome, genus_assemblies, card, errors)
+    log(f"phase 8: xxh3 compat genus model over the 32 Mbp genus genome, {XXH3_ASSEMBLIES} assemblies "
+        f"and {XXH3_READS} reads")
+    x_launches, x_timings = run_xxh3_genus(genus_genome, genus_assemblies, rng, card, errors)
     del genus_genome, genus_assemblies
 
     log("phase 9: the probe-select microbenchmark at its default shape")
@@ -2059,7 +2233,8 @@ def main() -> int:
     ]
     all_timings["reads_query"]["run_gap_ms"] = sum(n * (ms - bound) for n, ms, bound in k2_shapes)
     log(f"run gaps [{card}]: reads_query {all_timings['reads_query']['run_gap_ms']:.4f} ms over "
-        f"{sum(n for n, _, _ in k2_shapes)} launches at their own shapes, bloom_count "
+        f"{sum(n for n, _, _ in k2_shapes)} launches at their own shapes, xxh3_records_count "
+        f"{x_timings['xxh3_records_count']['run_gap_ms']:.4f} ms over {x_launches['xxh3_records_count']}, bloom_count "
         f"{x_timings['bloom_count']['run_gap_ms']:.4f} ms over {x_launches['bloom_count']} (time less bound, summed)")
     all_timings["records_query"]["block_sharded"] = k3_sharded
     all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, mlst_launches,
@@ -2078,11 +2253,13 @@ def main() -> int:
         f"kernels [{card}]: launches summed over every main-path run (species and genus reads, "
         f"genus assemblies, the 40-class fit and both assembly runs, the sharded classifiers' public "
         f"methods at NCCL world size 1, classify_mlst and the three MLST predict runs, the xxh3 genus "
-        f"run, the microbenchmark); unpack_2bit and reads_query timed at the species reads shape, "
+        f"assemblies and reads with the filter's count API, the microbenchmark); unpack_2bit and reads_query "
+        f"timed at the species reads shape, "
         f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
         f"at the same shapes; classes_512: a 512-class table, also on short records and the global-atomic "
         f"path), multi_records_query and reduce_record_counts at one group of 4 genomes, "
-        f"bloom_count at the longest contig, probe_select at one chunk of 8,192 reads; "
+        f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
+        f"chunk of 8,192 reads; "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

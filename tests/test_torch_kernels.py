@@ -283,6 +283,61 @@ def test_bloom_count_kernel_matches_plain_and_host(cuda_device, n):
     assert int(bloom.bloom_count(words, pos, mask)) == int(bloom.bloom_count_plain(words, pos, mask))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [5, 8, 12, 16, 21, 31, 32])
+@pytest.mark.parametrize("hint", [None, 10**6])
+def test_xxh3_records_kernel_matches_plain_and_host(cuda_device, k, hint):
+    """The new K7 hashes on the card: its per-record counts equal its plain
+    version and ``count_hits_host`` at every XXH3 length path and 16-base
+    word boundary, on the shared-counter path (hint: the shortest record)
+    and the global-atomic path (hint 10**6), one launch a batch."""
+    from xspect2_tpu_torch.core import compat
+    from xspect2_tpu_torch.ops import bloom
+
+    rng = np.random.default_rng(k)
+    genome = rng.integers(0, 4, size=30_000, dtype=np.uint8)
+    filt = compat.XXH3BloomFilter.for_items(len(genome), 0.01, k, device=cuda_device)
+    filt.insert_packed(*dna.canonical_kmers(genome, k))
+    records = _records(rng, [genome], 900, k + 1, 400, k=k) + _records(rng, [genome], 3, 5000, 9000, k=k)
+    records.append(("random", rng.integers(0, 4, size=3000, dtype=np.uint8)))
+    batch = query.prepare_batch(records, k, chunk=1 << 16)
+    max_records = query._next_pow2(max(8, batch.num_records))
+    wire = query.upload_records_wire(batch, max_records, cuda_device)
+    codes, rec_ids, valid = query.restore_records_wire(*wire, batch.num_positions, k=k, step=1)
+    geom = dict(max_records=max_records, k=k, num_bits=filt.num_bits, num_hashes=filt.num_hashes)
+    words = filt.device_words()
+    before = bloom.xxh3_records_count.launches
+    got = bloom.xxh3_records_count(words, codes, rec_ids, valid, min_record_len=hint or k + 1, **geom)
+    assert bloom.xxh3_records_count.launches == before + 1
+    want = bloom.xxh3_records_count_plain(words, codes, rec_ids, valid, **geom)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    host = [filt.count_hits_host(*dna.canonical_kmers(c, k)) for _, c in records]
+    np.testing.assert_array_equal(got[: len(records)].cpu().numpy(), host)
+    if k >= 12:  # a random record hits by false positives only (at k < 12 the genome holds most k-mers)
+        assert 0 < int(got[len(records) - 1]) < 3000 - k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("step", [1, 4])
+def test_xxh3_genus_model_launches_once_per_record_batch(cuda_device, tmp_path, step):
+    from xspect2_tpu_torch.io.fasta import SeqRecord
+    from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
+    from xspect2_tpu_torch.ops import bloom
+
+    rng = np.random.default_rng(step)
+    genome = rng.integers(0, 4, size=50_000, dtype=np.uint8)
+    (tmp_path / "g.fasta").write_text(">g\n" + dna.decode(genome) + "\n", encoding="utf-8")
+    model = ProbabilisticSingleFilterModel(21, "X", None, None, "Genus", tmp_path, hash_family="xxh3",
+                                           device=cuda_device)
+    model.fit(tmp_path / "g.fasta", "X g")
+    recs = [SeqRecord(dna.decode(genome[i * 400 : i * 400 + 150 + i]), id=f"r{i}") for i in range(100)]
+    before = bloom.xxh3_records_count.launches, bloom.bloom_count.launches
+    res = model.predict(recs, step=step)
+    assert (bloom.xxh3_records_count.launches, bloom.bloom_count.launches) == (before[0] + 1, before[1])
+    for i in (0, 57, 99):
+        assert res.hits[f"r{i}"] == {"g": -(-(150 + i - 20) // step)}
+
+
 # ------------------------------------------------------------------ owned-block mode, K8
 
 
@@ -321,6 +376,35 @@ def test_read_query_kernel_owned_block_mode_matches_plain_and_sums_to_the_whole(
         total += got
     torch.testing.assert_close(total, whole, rtol=0, atol=0)
     assert int(whole.sum()) > 0
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+@pytest.mark.parametrize("read_len", [37, 133, 151, 2100, 5003])
+def test_read_query_kernel_on_staged_codes_at_the_edge_shapes(cuda_device, name, read_len):
+    """K2 on staged codes equals its plain version at read lengths that are
+    not multiples of 16 and above the 2,048-position stage, at steps 1-5,
+    on the whole table and in owned-block mode (every probe path)."""
+    rng = np.random.default_rng(read_len)
+    idx, genomes = _index(*GEOMETRIES[name], rng, length=12_000)
+    reads = _reads(rng, genomes, 3000 if read_len < 1000 else 40, read_len)
+    reads[-3:, ::21] = 255  # poisoned like padding rows: count nothing
+    engine = query.DeviceQueryEngine(idx, device=cuda_device)
+    codes = torch.from_numpy(reads).to(cuda_device)
+    local_blocks, tables = _block_shards(idx, 2, cuda_device)
+    for step in (1, 2, 3, 4, 5):
+        geom = dict(step=step, **engine.geometry())
+        got = query.reads_query(codes, engine.table, **geom).long()
+        torch.testing.assert_close(got, query.reads_query_plain(codes, engine.table, **geom).long(), rtol=0, atol=0)
+        assert int(got[-3:].sum()) == 0 and int(got.sum()) > 0
+        total = torch.zeros_like(got)
+        for m, table in enumerate(tables):
+            window = dict(local_blocks=local_blocks, block_offset=m * local_blocks)
+            part = query.reads_query(codes, table, **geom, **window).long()
+            torch.testing.assert_close(part, query.reads_query_plain(codes, table, **geom, **window).long(),
+                                       rtol=0, atol=0)
+            total += part
+        torch.testing.assert_close(total, got, rtol=0, atol=0)
+
 
 
 @pytest.mark.cuda

@@ -13,10 +13,14 @@ pinned XXH3-64 in :mod:`xspect2_tpu_torch.core.xxh3`:
    by Kirsch-Mitzenmacher double hashing over the 64-bit digest.
 
 :class:`XXH3BloomFilter` packages these into a filter with host-side
-insert (index build is a host job) and a device-side membership count:
-the host hashes, kernel K7 (:func:`xspect2_tpu_torch.ops.bloom.bloom_count`)
-tests the bits.  This is a verification and parity mode, not the
-throughput path: the blocked bit-sliced index stays the default.
+insert (index build is a host job) and two device-side membership
+counts: :meth:`XXH3BloomFilter.count_hits_batch`, the genus model's
+path, hashes and tests on the card, per record of a prepared batch
+(kernel K7, :func:`xspect2_tpu_torch.ops.bloom.xxh3_records_count`);
+:meth:`XXH3BloomFilter.count_hits_device` keeps the JAX package's API:
+the host hashes, :func:`xspect2_tpu_torch.ops.bloom.bloom_count` tests
+the bits.  This is a verification and parity mode, not the throughput
+path: the blocked bit-sliced index stays the default.
 
 Ambiguous bases ('N'): the filter packs k-mers 2-bit and therefore
 skips windows holding a non-ACGT base on BOTH insert and query, while
@@ -34,7 +38,13 @@ import torch
 from xspect2_tpu_torch import resolve_device
 from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.xxh3 import xxh3_64_batch
-from xspect2_tpu_torch.ops.bloom import bloom_count
+from xspect2_tpu_torch.ops.bloom import bloom_count, xxh3_records_count
+from xspect2_tpu_torch.ops.query import (
+    PreparedBatch,
+    _next_pow2,
+    restore_records_wire,
+    upload_records_wire,
+)
 
 # k-mer windows hashed per pass of insert_sequence: bounds the host
 # memory of a whole-genome insert (the OR into the filter is order-free)
@@ -188,24 +198,57 @@ class XXH3BloomFilter:
         ) & np.uint32(1)
         return int(np.sum(bits.all(axis=1) & np.asarray(valid, dtype=bool)))
 
-    def count_hits_device(self, hi, lo, valid) -> int:
-        """Same count with the bit tests on the device (kernel K7).
-
-        Hashing stays on the host (XXH3 over ASCII bytes is a byte
-        pipeline); the device reads the filter words and ANDs the probe
-        bits.  Positions travel as the bit patterns of uint32.
-        """
+    def device_words(self) -> torch.Tensor:
+        """The filter's words on its device as int32 (uint32 bits), copied
+        once and kept until the next insert."""
         if self.num_bits > 0xFFFFFFFF:
             raise NotImplementedError("filters beyond 2^32 bits: shard first")
         device = resolve_device(self.device)
         if self._device_words is None or self._device_words.device != device:
             self._device_words = torch.from_numpy(self.words.view(np.int32)).to(device)
+        return self._device_words
+
+    def count_hits_device(self, hi, lo, valid) -> int:
+        """Same count with the bit tests on the device (kernel K7's
+        :func:`~xspect2_tpu_torch.ops.bloom.bloom_count`).
+
+        Hashing stays on the host, as in the JAX package's method of the
+        same name; the device reads the filter words and ANDs the probe
+        bits.  Positions travel as the bit patterns of uint32.
+        """
+        words = self.device_words()
         pos = self._positions(hi, lo, valid).astype(np.uint32).view(np.int32)
         mask = np.ascontiguousarray(valid, dtype=bool)
         count = bloom_count(
-            self._device_words, torch.from_numpy(pos).to(device), torch.from_numpy(mask).to(device)
+            words, torch.from_numpy(pos).to(words.device), torch.from_numpy(mask).to(words.device)
         )
         return int(count.item())
+
+    def count_hits_batch(self, batch: PreparedBatch) -> np.ndarray:
+        """Hits of every record of a prepared batch
+        (:func:`~xspect2_tpu_torch.ops.query.prepare_batch` at this
+        filter's k): int64 [batch.num_records], one count per record as
+        :meth:`count_hits_host` gives it on the record's canonical k-mers
+        at the batch's step.
+
+        Everything runs on the device: K1 and K4 restore the codes,
+        record ids and validity from the batch's compact wire, K7
+        (:func:`~xspect2_tpu_torch.ops.bloom.xxh3_records_count`) hashes
+        and tests every valid window, one launch each, and one fetch
+        brings the counts back.
+        """
+        words = self.device_words()
+        max_records = _next_pow2(max(8, batch.num_records))
+        codes, rec_ids, valid = restore_records_wire(
+            *upload_records_wire(batch, max_records, words.device), batch.num_positions,
+            k=self.k, step=batch.step,
+        )
+        counts = xxh3_records_count(
+            words, codes, rec_ids, valid, max_records=max_records, k=self.k,
+            num_bits=self.num_bits, num_hashes=self.num_hashes,
+            min_record_len=int(np.diff(batch.offsets).min()),
+        )
+        return counts[: batch.num_records].cpu().numpy().astype(np.int64)
 
     def count_hits_sequence(self, seq: str | bytes, device: bool = True) -> int:
         hi, lo, valid = dna.canonical_kmers(dna.encode(seq), self.k)

@@ -9,8 +9,8 @@
 // (row, w) of a block at row * class_words + w, so one probe row is
 // class_words contiguous words.  P = fields_per_word.  P=1 ANDs the
 // rows (b+i*c)&(rpb-1) over i<h, all class words of a row at once; P>1
-// (class_words == 1) ANDs the probes of each slot s<min(h,P), rotates
-// the slot's word right by ((g+s)&(P-1))*fb and masks the result to
+// (class_words == 1) ANDs the probes i<h, each rotated right by
+// ((g+i)&(P-1))*fb (its slot's field offset), and masks the result to
 // fb = 32/P bits.
 //
 // P=1 reads a probe row with the widest aligned vector load its width
@@ -195,8 +195,13 @@ __device__ __forceinline__ void probe_rows_v(const uint32_t* __restrict__ blk, c
   }
 }
 
-// P > 1 (class_words == 1): AND the probes of each slot, rotate the
-// slot's fields into place, keep the field of the classes.
+// P > 1 (class_words == 1): AND the probes, each rotated by its slot's
+// field offset (probe i lies in slot i % P, and a rotation distributes
+// over the AND), and keep the field of the classes.  kFieldLoads probes
+// are loaded before their AND: field-packed tables take few probes (h=2
+// at the species and genus geometries), and a wider unrolled batch slowed
+// the owned-block mode on the card.
+constexpr int kFieldLoads = 2;
 __device__ __forceinline__ void probe_fields(const uint32_t* __restrict__ blk, const ProbeGeom& g,
                                              uint32_t b, uint32_t c, int32_t* cnt) {
   // P > 1 means fb < 32, so every shift below is defined
@@ -204,15 +209,19 @@ __device__ __forceinline__ void probe_fields(const uint32_t* __restrict__ blk, c
   const uint32_t row_mask = uint32_t(g.rows_per_block - 1);
   const int fb = 32 / P;
   const uint32_t gbase = (b >> 24) & uint32_t(P - 1);
-  const int slots = min(g.num_hashes, P);
   uint32_t acc = 0xFFFFFFFFu;
-  for (int s = 0; s < slots; ++s) {
-    uint32_t slot = 0xFFFFFFFFu;
-    for (int i = s; i < g.num_hashes; i += P)
-      slot &= __ldg(blk + ((b + uint32_t(i) * c) & row_mask));
-    const uint32_t rot = ((gbase + uint32_t(s)) & uint32_t(P - 1)) * uint32_t(fb);
-    if (rot) slot = (slot >> rot) | (slot << (32u - rot));
-    acc &= slot;
+  for (int i0 = 0; i0 < g.num_hashes; i0 += kFieldLoads) {
+    uint32_t x[kFieldLoads];
+#pragma unroll
+    for (int j = 0; j < kFieldLoads; ++j) {
+      x[j] = i0 + j < g.num_hashes ? __ldg(blk + ((b + uint32_t(i0 + j) * c) & row_mask))
+                                   : 0xFFFFFFFFu;
+    }
+#pragma unroll
+    for (int j = 0; j < kFieldLoads; ++j) {
+      const uint32_t rot = ((gbase + uint32_t(i0 + j)) & uint32_t(P - 1)) * uint32_t(fb);
+      acc &= rot ? (x[j] >> rot) | (x[j] << (32u - rot)) : x[j];
+    }
   }
   add_bits(acc & ((1u << fb) - 1u), 0, g.num_classes, cnt);
 }

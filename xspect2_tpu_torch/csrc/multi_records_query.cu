@@ -82,8 +82,8 @@ __global__ void __launch_bounds__(xs::kThreads, xs::min_blocks(Kind))
   const int64_t p0 = int64_t(blockIdx.x) * t.positions_per_block;
   if (p0 >= a.n_pos) return;  // uniform over the block
   const int64_t p1 = p0 + t.positions_per_block < a.n_pos ? p0 + t.positions_per_block : a.n_pos;
-  xs::count_records_block<Kind>(codes, rec_ids, valid, t.table, t.out, p0, p1, a.max_records,
-                                t.counter_rows, t.probe, s_counts);
+  xs::count_records_block(codes, rec_ids, valid, t.out, p0, p1, a.max_records, t.counter_rows,
+                          xs::TableProbe<Kind>{t.table, t.probe}, s_counts);
 }
 
 template <int Kind>

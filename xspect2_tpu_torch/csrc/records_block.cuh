@@ -1,13 +1,17 @@
 // One thread block's share of a records query, shared by K3
-// (records_query.cu, one table) and K5 (multi_records_query.cu, several
-// tables over one position stream).
+// (records_query.cu, one table), K5 (multi_records_query.cu, several
+// tables over one position stream) and K7 (xxh3_bloom.cu, the xxh3
+// compat genus filter); its code stage (stage_codes, staged_window) also
+// serves K2 (reads_query.cu).
 //
 // The block owns positions [p0, p1) of a flat batch, at most
 // kMaxBlockPositions.  For each position p with valid[p],
 // 0 <= rec_ids[p] < max_records and no invalid base in
-// codes[p .. p+k-1], the window is canonicalized, hashed and probed as
-// kmer_probe.cuh does, and each set class bit adds one to
-// out[rec_ids[p], class].
+// codes[p .. p+k-1], the window is canonicalized and handed to the
+// kernel's probe, which adds its hits to the counters of record
+// rec_ids[p]: a blocked table's probe (TableProbe: hashed and probed as
+// kmer_probe.cuh does, each set class bit adds one to
+// out[rec_ids[p], class]) or the xxh3 Bloom test (one class).
 //
 // The block first finds the span of record ids of its VALID positions
 // (the raw wire's padding carries record id 0 and is never valid, so
@@ -160,23 +164,36 @@ __device__ __forceinline__ void flush_counts(const int32_t* s_counts, int32_t* _
   }
 }
 
-// s_counts: counter_rows * probe.num_classes int32 of shared memory;
-// Kind: the table's probe path (kmer_probe.cuh).  Every thread of the
-// block must call this (it synchronizes the block).
+// The probe of a blocked table on probe path Kind (kmer_probe.cuh).  A
+// probe has k() and num_classes(), and its call adds the class hits of
+// the canonical k-mer (hi, lo) to cnt[0 .. num_classes).
 template <int Kind>
+struct TableProbe {
+  const uint32_t* table;
+  const ProbeGeom& g;
+  __device__ __forceinline__ int k() const { return g.k; }
+  __device__ __forceinline__ int num_classes() const { return g.num_classes; }
+  __device__ __forceinline__ void operator()(uint32_t hi, uint32_t lo, int32_t* cnt) const {
+    probe_and_count<Kind>(table, g, hi, lo, cnt);
+  }
+};
+
+// s_counts: counter_rows * probe.num_classes() int32 of shared memory.
+// Every thread of the block must call this (it synchronizes the block).
+template <class Probe>
 __device__ __forceinline__ void count_records_block(
     const uint8_t* __restrict__ codes, const int32_t* __restrict__ rec_ids,
-    const uint8_t* __restrict__ valid, const uint32_t* __restrict__ table,
-    int32_t* __restrict__ out, int64_t p0, int64_t p1, int max_records, int counter_rows,
-    const ProbeGeom& probe, int32_t* s_counts) {
+    const uint8_t* __restrict__ valid, int32_t* __restrict__ out, int64_t p0, int64_t p1,
+    int max_records, int counter_rows, const Probe& probe, int32_t* s_counts) {
   __shared__ StagedCodes s_codes;
-  const int num_classes = probe.num_classes;
+  const int num_classes = probe.num_classes();
+  const int k = probe.k();
   int r_first, r_last;
   record_span(rec_ids, valid, p0, p1, max_records, r_first, r_last);
   if (r_last < 0) return;  // no valid position in this block
   const int span = r_last - r_first + 1;
   const bool shared = span <= counter_rows;
-  stage_codes(codes, p0, p1 + probe.k - 1, s_codes);
+  stage_codes(codes, p0, p1 + k - 1, s_codes);
   if (shared) {
     for (int i = threadIdx.x; i < span * num_classes; i += blockDim.x) s_counts[i] = 0;
   }
@@ -187,10 +204,8 @@ __device__ __forceinline__ void count_records_block(
     const int r = rec_ids[p];
     if (r < 0 || r >= max_records) continue;
     uint32_t hi, lo;
-    if (!staged_window(s_codes, p, probe.k, hi, lo)) continue;
-    int32_t* cnt = shared ? s_counts + (r - r_first) * num_classes
-                          : out + int64_t(r) * num_classes;
-    probe_and_count<Kind>(table, probe, hi, lo, cnt);
+    if (!staged_window(s_codes, p, k, hi, lo)) continue;
+    probe(hi, lo, shared ? s_counts + (r - r_first) * num_classes : out + int64_t(r) * num_classes);
   }
   if (!shared) return;
   __syncthreads();

@@ -66,8 +66,8 @@ __global__ void __launch_bounds__(xs::kThreads, xs::min_blocks(Kind))
   extern __shared__ int32_t s_counts[];
   const int64_t p0 = int64_t(blockIdx.x) * g.positions_per_block;
   const int64_t p1 = p0 + g.positions_per_block < g.n_pos ? p0 + g.positions_per_block : g.n_pos;
-  xs::count_records_block<Kind>(codes, rec_ids, valid, table, out, p0, p1, g.max_records,
-                                g.counter_rows, g.probe, s_counts);
+  xs::count_records_block(codes, rec_ids, valid, out, p0, p1, g.max_records, g.counter_rows,
+                          xs::TableProbe<Kind>{table, g.probe}, s_counts);
 }
 
 }  // namespace

@@ -7,8 +7,10 @@ One Bloom-filter column holding the canonical k-mers of a whole genus.
   blocked bit-sliced index, queried by the same device engine as the
   species model.
 - ``"xxh3"``: the compat mode (:mod:`xspect2_tpu_torch.core.compat`):
-  XXH3-64 over the ASCII canonical k-mer string, hashed on the host,
-  with the bit tests on the device; a parity and verification mode.
+  XXH3-64 over the ASCII canonical k-mer string; a parity and
+  verification mode.  Its queries take the records route in batches:
+  K1 and K4 restore each batch on the device and K7 hashes, tests and
+  counts every record's windows there, one launch per batch.
 """
 
 import json
@@ -21,6 +23,7 @@ from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.io.fasta import get_record_iterator
 from xspect2_tpu_torch.models.filter_model import VALIDATION_SLICE, ProbabilisticFilterModel
 from xspect2_tpu_torch.models.result import ModelResult
+from xspect2_tpu_torch.ops.query import prepare_batch
 
 
 class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
@@ -103,6 +106,15 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
 
     # ------------------------------------------------- xxh3 compat mode
 
+    def _compat_class_name(self) -> str:
+        # single-class model: the one trained genus file's stem
+        return next(iter(self.display_names), "metagenome")
+
+    def _compat_counts(self, records, step: int) -> tuple[list[int], list[int]]:
+        """Hits and k-mer counts of ``(name, codes)`` records: one device batch."""
+        batch = prepare_batch(records, self.k, step=step)
+        return self.compat_filter.count_hits_batch(batch).tolist(), batch.num_kmers
+
     def calculate_hits(self, sequence, exclude_ids: list[str] | None = None, step: int = 1) -> dict:
         if self.compat_filter is None:
             return super().calculate_hits(sequence, exclude_ids, step=step)
@@ -111,12 +123,11 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
             seq = str(seq)
         if not len(seq) > self.k:
             raise ValueError("Invalid sequence, must be longer than k")
-        hi, lo, valid = dna.canonical_kmers(dna.encode(seq), self.k, step=step)
-        # single-class model: the one trained genus file's stem
-        name = next(iter(self.display_names), "metagenome")
+        name = self._compat_class_name()
         if exclude_ids and name in exclude_ids:
             return {}
-        return {name: self.compat_filter.count_hits_device(hi, lo, valid)}
+        counts, _ = self._compat_counts([("seq", dna.encode(seq))], step)
+        return {name: counts[0]}
 
     def predict(
         self,
@@ -130,12 +141,19 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
             return super().predict(sequence_input, exclude_ids, step, display_name, validation)
         if validation:
             raise NotImplementedError(VALIDATION_SLICE)
+        name = self._compat_class_name()
+        excluded = bool(exclude_ids) and name in exclude_ids
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
-        for rec in self._as_record_iterable(sequence_input):
-            rec_hits = self.calculate_hits(rec, exclude_ids, step=step)
-            hits[rec.id] = self._with_display_names(rec_hits) if display_name else rec_hits
-            num_kmers[rec.id] = self._count_kmers(str(rec.seq), step=step)
+        for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
+            # a record of at most k bases raises here, as calculate_hits does
+            counts, kmers = self._compat_counts(
+                [(rec.id, dna.encode(str(rec.seq))) for rec in rec_batch], step
+            )
+            for rec, count, nk in zip(rec_batch, counts, kmers):
+                rec_hits = {} if excluded else {name: count}
+                hits[rec.id] = self._with_display_names(rec_hits) if display_name else rec_hits
+                num_kmers[rec.id] = nk
         if not hits:
             raise ValueError("No sequences found in input")
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)

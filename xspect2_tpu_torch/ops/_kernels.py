@@ -55,6 +55,10 @@ SIGNATURES = {
         [_vp, _vp, _vp, _i32, _vp, _i32, _i32, _i32, _i32, _i32, _vp],
     ),
     "bloom_count": ("xs_bloom_count", [_vp, _vp, _vp, _vp, _i64, _i32, _i64, _vp]),
+    "xxh3_bloom": (
+        "xs_xxh3_records_count",
+        [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _i64, _i32, _vp],
+    ),
     "probe_select": ("xs_probe_select", [_vp, _vp, _vp, _i64, _i32, _i32, _vp]),
 }
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)

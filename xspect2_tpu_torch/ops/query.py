@@ -8,9 +8,9 @@ Uniform reads (the FASTQ path):
    lists the invalid bases as (row, column) patches;
 2. :func:`unpack_2bit` (kernel K1, ``csrc/unpack_2bit.cu``) restores
    the [N, L] uint8 codes on the device;
-3. :func:`reads_query` (kernel K2, ``csrc/reads_query.cu``) packs,
-   canonicalizes and hashes every kept k-mer window, ANDs its probe
-   words and counts per-read, per-class hits.
+3. :func:`reads_query` (kernel K2, ``csrc/reads_query.cu``) stages the
+   codes 2-bit packed, canonicalizes and hashes every kept k-mer window,
+   ANDs its probe words and counts per-read, per-class hits.
 
 Ragged records (assemblies, record lists):
 
@@ -66,8 +66,9 @@ _PLAIN_POSITIONS = 1 << 20
 # shared-memory bytes for K2's per-block (read, class) and K3's
 # per-block (record, class) counters
 _SHARED_COUNTER_BYTES = 32768
-# kept windows handled by one K2 thread block, positions by one K3 or K5
-# block (at most kMaxBlockPositions of csrc/records_block.cuh)
+# kept windows handled by one K2 thread block, positions by one K3, K5
+# or K7 block; also the most flat positions a K2 block's windows may
+# start at (kMaxBlockPositions of csrc/records_block.cuh: the code stage)
 _WINDOWS_PER_BLOCK = 2048
 # record slots summed by one K6 thread block
 _REDUCE_ROWS = 32
@@ -413,6 +414,37 @@ def _counter_rows(num_classes: int) -> int:
     return _SHARED_COUNTER_BYTES // (4 * num_classes)
 
 
+def _window_span(m: int, read_len: int, step: int, nkk: int) -> int:
+    """The most flat positions from the first to the last of ``m + 1``
+    consecutive kept windows of [N, read_len] reads (``nkk`` kept a read),
+    wherever they start: ``q`` whole reads and ``s`` more windows; when
+    ``s > 0`` the last may lie past a read boundary, which costs
+    ``read_len - nkk * step`` more than the stride when that is positive."""
+    q, s = divmod(m, nkk)
+    return q * read_len + s * step + (max(0, read_len - nkk * step) if s else 0)
+
+
+def _reads_block(read_len: int, k: int, step: int, num_classes: int) -> tuple[int, int]:
+    """``(windows_per_block, max_reads)`` of K2's thread blocks.
+
+    A block's ``wpb`` kept windows span at most ``(wpb-1)//nkk + 2``
+    reads, whose counters must fit its shared memory, and their flat
+    start positions at most ``_WINDOWS_PER_BLOCK`` positions, whose codes
+    the block stages (``csrc/records_block.cuh``), for every ``read_len``,
+    ``k`` and ``step``.  The counts do not depend on the choice.
+    """
+    nkk = -(-(read_len - k + 1) // step)
+    wpb = min(_WINDOWS_PER_BLOCK, (_counter_rows(num_classes) - 2) * nkk + 1)
+    lo, hi = 1, wpb  # the largest wpb in [lo, hi] whose span fits the stage
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _window_span(mid - 1, read_len, step, nkk) < _WINDOWS_PER_BLOCK:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo, (lo - 1) // nkk + 2
+
+
 def _canonical_windows_plain(codes: torch.Tensor, k: int, nk: int):
     """Canonical (hi, lo) words and the invalid flag of windows 0..nk-1
     of each row of int64 ``codes`` [m, >= nk + k - 1]: ([m, nk],) * 3."""
@@ -580,11 +612,7 @@ def reads_query(
         raise ValueError("codes and table must share one device")
     codes = codes.contiguous()
     table = _aligned(table)
-    nkk = -(-(read_len - k + 1) // step)
-    # a block's windows span at most (wpb-1)//nkk + 2 reads, whose
-    # counters must fit the shared-memory budget
-    wpb = min(_WINDOWS_PER_BLOCK, (_counter_rows(num_classes) - 2) * nkk + 1)
-    max_reads = (wpb - 1) // nkk + 2
+    wpb, max_reads = _reads_block(read_len, k, step, num_classes)
     out = torch.zeros((n, num_classes), dtype=torch.int32, device=codes.device)
     fn = _kernels.entry("reads_query")
     stream = torch.cuda.current_stream(codes.device).cuda_stream
