@@ -16,14 +16,14 @@ width:
 - records: a 40-class x 4 Mbp SVM species model trained through
   ``ProbabilisticFilterSVMModel.fit``, then ``classify_species`` on 20
   held-out draft assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4,
-  and ``classify_genus`` on assemblies of the genus genome (K1, K4, K3);
+  and ``classify_genus`` on assemblies of the genus genome (K4, K3);
 - MLST: a 7-locus x 1,000-allele x 450 bp scheme (k=31, fpr 0.001, one
   hash) trained through ``ProbabilisticFilterMlstSchemeModel.fit``, then
   ``classify_mlst`` on a FASTA of 4 Mbp genomes with one known allele
-  per locus and a few short records (K1, K4, K5, K6);
+  per locus and a few short records (K4, K5, K6);
 - xxh3 genus: the compat genus model fitted on the 32 Mbp genus genome,
   then ``classify_genus`` on assemblies drawn from it and on a FASTQ of
-  100,000 reads (K1, K4 and K7, which hashes on the card: one launch per
+  100,000 reads (K4 and K7, which hashes on the card: one launch per
   record batch); the filter's own count API on sampled contigs (host
   hashing, the position-based K7);
 - sharded: ``xspect2_tpu_torch.parallel`` on the same tables and reads.
@@ -37,8 +37,10 @@ width:
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
-version, and prints one JSON line per the contract below as its last
-line:
+version (a call's time between CUDA events, ``ms``, and the kernels' own
+time with no host work between them, ``device_ms``: calls captured in a
+CUDA graph and replayed), and prints one JSON line per the contract below
+as its last line:
 
     {"ok": true, "device": {"platform": "gpu", "kind": "<name>", "count": 1}}
 
@@ -88,7 +90,7 @@ XXH3_READS = 100_000
 KERNELS = {
     "unpack_2bit": ("xspect2_tpu_torch/csrc/unpack_2bit.cu", "xspect2_tpu/ops/query.py:751"),
     "reads_query": ("xspect2_tpu_torch/csrc/reads_query.cu", "xspect2_tpu/ops/query.py:624"),
-    "records_wire": ("xspect2_tpu_torch/csrc/records_wire.cu", "xspect2_tpu/ops/query.py:301"),
+    "records_wire": ("xspect2_tpu_torch/csrc/records_wire.cu", "xspect2_tpu/ops/query.py:293"),
     "records_query": ("xspect2_tpu_torch/csrc/records_query.cu", "xspect2_tpu/ops/query.py:470"),
     "multi_records_query": ("xspect2_tpu_torch/csrc/multi_records_query.cu", "xspect2_tpu/ops/query.py:854"),
     "reduce_record_counts": ("xspect2_tpu_torch/csrc/segment_reduce.cu", "xspect2_tpu/ops/query.py:909"),
@@ -115,6 +117,8 @@ WINDOW_OPS = 90
 TABLE_OPS = 10
 XXH3_OPS = 120
 PROBE64_OPS = 25
+# replays of a captured graph of calls in a device-only time
+GRAPH_REPLAYS = 5
 
 
 def log(msg: str) -> None:
@@ -131,8 +135,10 @@ def require(cond, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warm: bool = True) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` calls, after one
-    warm-up unless ``warm`` is False."""
+    """Mean milliseconds of a call of ``fn`` over ``reps`` calls back to
+    back between two CUDA events, after one warm-up unless ``warm`` is
+    False: the call time, host work of the wrapper included where it
+    outlasts the kernel."""
     if warm:
         fn()
     torch.cuda.synchronize()
@@ -144,6 +150,63 @@ def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> tuple[float | None, str]:
+    """Device-only milliseconds of a call of ``fn`` and how they were
+    taken: ``reps`` calls captured in one CUDA graph, its replays timed
+    between CUDA events ("graph"), so no host work lies between the
+    kernels; where the calls cannot be captured, the kernels' durations
+    in a ``torch.profiler`` trace ("profiler"); else ``(None, "not
+    measured")``."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(GRAPH_REPLAYS):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        del graph
+        return start.elapsed_time(end) / (GRAPH_REPLAYS * reps), "graph"
+    except RuntimeError as exc:
+        log(f"  device_ms: the calls cannot be captured in a CUDA graph ({str(exc)[:120]}); profiler")
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return (us / 1e3 / reps, "profiler") if us else (None, "not measured")
+
+
+def timed(fn, reps: int) -> dict:
+    """The call time (``ms``) and the device-only time (``device_ms``,
+    ``device_by``) of ``fn``."""
+    ms = cuda_ms(fn, reps)
+    dev, by = device_ms(fn, reps)
+    return dict(ms=ms, device_ms=dev, device_by=by)
+
+
+def ms_text(t: dict) -> str:
+    dev = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
+    return f"{t['ms']:.4f} ms a call, {dev} device-only ({t['device_by']})"
 
 
 def pin_one_card() -> str:
@@ -276,12 +339,19 @@ def check_kernels(rng, errors):
         n_pad = n + 72  # 72 padding rows, poisoned by the wire
         reads = rng.integers(0, 4, size=(n, read_len), dtype=np.uint8)
         reads[rng.integers(0, n, 40), rng.integers(0, read_len, 40)] = 255
-        wire = [torch.from_numpy(a).to(dev) for a in query.pack_reads_wire(reads, K, n_pad)]
+        wire = query.wire_to_device(query.pack_reads_wire(reads, K, n_pad), dev)
         require(int((wire[1] >= n_pad).sum()) > 0, "the patch list carries no sentinel")
         codes = query.unpack_2bit(*wire, read_len)
         plain_codes = query.unpack_2bit_plain(*wire, read_len)
+        # the same list shuffled (the patch-only launch), and no list at all
+        perm = torch.from_numpy(rng.permutation(wire[1].numel())).to(dev)
+        shuffled = query.unpack_2bit(wire[0], wire[1][perm], wire[2][perm], read_len)
+        none = wire[1][:0]
+        bare = query.unpack_2bit(wire[0], none, none, read_len)
         errors["unpack_2bit"] = max(
-            errors["unpack_2bit"], int((codes.int() - plain_codes.int()).abs().max())
+            errors["unpack_2bit"], int((codes.int() - plain_codes.int()).abs().max()),
+            int((shuffled.int() - plain_codes.int()).abs().max()),
+            int((bare.int() - query.unpack_2bit_plain(wire[0], none, none, read_len).int()).abs().max()),
         )
         table = query.table_tensor(idx, dev)
         geom = dict(
@@ -298,6 +368,16 @@ def check_kernels(rng, errors):
             f"  kernels vs plain: C={num_classes} P={idx.fields_per_word} h={h} "
             f"L={read_len} step={step}: max |err| {err}, hits {int(got.sum())}"
         )
+    # K1 alone at reads shorter than 16 bases (codes built with a running
+    # column) and longer than its 8,192-code tile (every tile starts and
+    # ends inside a row)
+    for read_len, k in ((5, 3), (10_001, K)):
+        reads = rng.integers(0, 4, size=(300, read_len), dtype=np.uint8)
+        reads[rng.integers(0, 300, 40), rng.integers(0, read_len, 40)] = 255
+        wire = query.wire_to_device(query.pack_reads_wire(reads, k, 320), dev)
+        err = int((query.unpack_2bit(*wire, read_len).int() - query.unpack_2bit_plain(*wire, read_len).int()).abs().max())
+        errors["unpack_2bit"] = max(errors["unpack_2bit"], err)
+        log(f"  unpack_2bit vs plain: L={read_len} k={k}, {wire[1].numel()} patch entries: max |err| {err}")
     require(errors["unpack_2bit"] == 0, "unpack_2bit disagrees with its plain version")
     require(errors["reads_query"] == 0, "reads_query disagrees with its plain version")
 
@@ -493,23 +573,23 @@ def time_kernels(idx, reads, card, errors):
     require(errors["unpack_2bit"] == 0 and errors["reads_query"] == 0,
             "a kernel disagrees with its plain version at the main path's shape")
 
-    k1_ms = cuda_ms(lambda: query.unpack_2bit(*wire, READ_LEN), 20)
+    k1 = timed(lambda: query.unpack_2bit(*wire, READ_LEN), 20)
     k1_plain = cuda_ms(lambda: query.unpack_2bit_plain(*wire, READ_LEN), 3)
-    k2_ms = cuda_ms(lambda: query.reads_query(codes, engine.table, **geom), 10)
+    k2 = timed(lambda: query.reads_query(codes, engine.table, **geom), 10)
+    k2_ms = k2["ms"]
     k2_plain = cuda_ms(lambda: query.reads_query_plain(codes, engine.table, **geom), 1)
+    shape = f"[{n_pad}x{READ_LEN}], {wire[1].numel()} patch entries"
 
     k1_bytes = wire[0].numel() + 8 * wire[1].numel() + codes.numel()
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
     b2 = reads_bound(idx, codes, got)
     valid, probes, window_sectors, run_sectors = b2["counted"], b2["probes"], b2["window_sectors"], b2["run_sectors"]
     k2_bytes_ms, k2_ops_ms, k2_reuse_free_ms = b2["bytes_ms"], b2["ops_ms"], b2["no_reuse_ms"]
-    log(
-        f"  timing [{card}] unpack_2bit [{n_pad}x{READ_LEN}], {wire[1].numel()} patch "
-        f"entries: {k1_ms:.4f} ms, bound {k1_bound:.4f} ms (bytes), plain {k1_plain:.4f} ms"
-    )
+    log(f"  timing [{card}] unpack_2bit {shape}: {ms_text(k1)}, bound {k1_bound:.4f} ms (bytes), "
+        f"plain {k1_plain:.4f} ms")
     log(
         f"  timing [{card}] reads_query [{n_pad}x{READ_LEN}], {valid} windows probed x "
-        f"{probes} words: {k2_ms:.4f} ms, bound {max(k2_bytes_ms, k2_ops_ms):.4f} ms "
+        f"{probes} words: {ms_text(k2)}, bound {max(k2_bytes_ms, k2_ops_ms):.4f} ms "
         f"(bytes {k2_bytes_ms:.4f} reading each of the {run_sectors} table sectors touched once, "
         f"operations {k2_ops_ms:.4f}), plain {k2_plain:.4f} ms"
     )
@@ -519,13 +599,13 @@ def time_kernels(idx, reads, card, errors):
         f"{k2_reuse_free_ms:.4f} ms"
     )
     log(
-        f"  device-side [{card}]: {n / ((k1_ms + k2_ms) / 1e3):.0f} reads/s "
-        f"({n} reads, {n_pad} rows; unpack + query kernels)"
+        f"  device-side [{card}]: {n / ((k1['ms'] + k2_ms) / 1e3):.0f} reads/s "
+        f"({n} reads, {n_pad} rows; unpack + query kernels, call times)"
     )
     return {
-        "unpack_2bit": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bound, bound_by="bytes"),
+        "unpack_2bit": dict(k1, plain_ms=k1_plain, bound_ms=k1_bound, bound_by="bytes"),
         "reads_query": dict(
-            ms=k2_ms, plain_ms=k2_plain, bound_ms=max(k2_bytes_ms, k2_ops_ms),
+            k2, plain_ms=k2_plain, bound_ms=max(k2_bytes_ms, k2_ops_ms),
             bound_by="bytes" if k2_bytes_ms >= k2_ops_ms else "operations",
         ),
     }
@@ -599,8 +679,8 @@ def run_path(kind, idx, genomes, rng, card):
     launches = read_launches()
     log(f"  {kind}: kernel launches on the reads path {launches}")
     require(
-        launches["unpack_2bit"] > 0 and launches["reads_query"] > 0,
-        f"{kind}: a kernel of the reads path was not launched",
+        launches["unpack_2bit"] == launches["reads_query"] > 0,
+        f"{kind}: the reads path did not launch K1 once (the patches inside it) for each K2 launch",
     )
     require(
         launches["records_wire"] == launches["records_query"] == 0,
@@ -758,6 +838,33 @@ def simulate_assembly(genome, rng, name, n_contigs, subst=0.01, gaps=3):
     return [tuple(c) for c in contigs]
 
 
+def restore_err(got, want) -> int:
+    """Max |err| between two (codes, record ids, validity) triples."""
+    return max(int((g.int() - w.int()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
+
+
+def check_restore(wire, n_pos, k, step, rng):
+    """K4 on a compact records wire against its plain version: in one
+    launch on the ascending patch list of packed_wire_for_batch, shuffled
+    (the patch-only launch after it), with no list and with sentinels
+    only, and without codes (``records_wire``).  Returns the max |err| and
+    the restored triple."""
+    from xspect2_tpu_torch.ops import query
+
+    packed, bad_pos, offsets = wire
+    args = dict(k=k, step=step)
+    got = query.restore_records_wire(packed, bad_pos, offsets, n_pos, **args)
+    err = restore_err(got, query.restore_records_wire_plain(packed, bad_pos, offsets, n_pos, **args))
+    perm = torch.from_numpy(rng.permutation(bad_pos.numel())).to(bad_pos.device)
+    sentinels = query.upload_patch_list(np.full(8, n_pos + k - 1, dtype=np.int32), bad_pos.device)
+    for patches in (bad_pos[perm], bad_pos[:0], sentinels):
+        err = max(err, restore_err(
+            query.restore_records_wire(packed, patches, offsets, n_pos, **args),
+            query.restore_records_wire_plain(packed, patches, offsets, n_pos, **args)))
+    err = max(err, restore_err(query.records_wire(offsets, n_pos, **args), got[1:]))
+    return err, got
+
+
 def check_records_kernels(rng, errors):
     """K3 and K4 equal their plain versions on the card, exactly, on both
     wires, at the four index layouts and steps 1 and 3."""
@@ -780,12 +887,8 @@ def check_records_kernels(rng, errors):
             records.append((f"r{i}", c))
         batch = query.prepare_batch(records, K, step=step, chunk=engine.chunk)
         max_records = query._next_pow2(max(8, batch.num_records))
-        packed, bad_pos, offsets = engine.upload_records_wire(batch, max_records)
-        n_tot = len(batch.codes)
-        codes = query.unpack_2bit(packed.view(1, -1), torch.zeros_like(bad_pos), bad_pos, n_tot).view(-1)
-        rec, valid = query.records_wire(offsets, batch.num_positions, k=K, step=step)
-        p_rec, p_valid = query.records_wire_plain(offsets, batch.num_positions, k=K, step=step)
-        err4 = int((rec - p_rec).abs().max()) + int((valid != p_valid).sum())
+        wire = engine.upload_records_wire(batch, max_records)
+        err4, (codes, rec, valid) = check_restore(wire, batch.num_positions, K, step, rng)
         require(bool((valid.cpu().numpy() == batch.valid).all()), "records_wire: validity differs from the batch")
         errors["records_wire"] = max(errors["records_wire"], err4)
         geom = dict(max_records=max_records, **engine.geometry())
@@ -909,56 +1012,81 @@ def bound_text(b) -> str:
             f"window, {b['no_reuse_ms']:.4f} ms with no reuse between windows")
 
 
-def time_records_kernels(engine, batch, card, errors):
-    """K1 (flat), K4 and K3 on one assembly's batch: time, bound, plain time."""
+def time_records_kernels(engine, batch, card, errors, rng):
+    """K4 (the records wire restored in one launch) and K3 on one
+    assembly's batch: call and device-only time, bound, plain time; K4's
+    record-id half against ``torch.searchsorted``.  K4 also on the flat
+    wire of 65,536 short records."""
     from xspect2_tpu_torch.ops import query
 
     max_records = query._next_pow2(max(8, batch.num_records))
-    packed, bad_pos, offsets = engine.upload_records_wire(batch, max_records)
-    zeros = torch.zeros_like(bad_pos)
-    n_tot, n_pos = len(batch.codes), batch.num_positions
-    flat = packed.view(1, -1)
-    codes = query.unpack_2bit(flat, zeros, bad_pos, n_tot).view(-1)
-    require(torch.equal(codes, query.unpack_2bit_plain(flat, zeros, bad_pos, n_tot).view(-1)),
-            "unpack_2bit disagrees with its plain version on the flat wire")
-    rec, valid = query.records_wire(offsets, n_pos, k=K, step=batch.step)
-    p_rec, p_valid = query.records_wire_plain(offsets, n_pos, k=K, step=batch.step)
-    errors["records_wire"] = max(errors["records_wire"], int((rec - p_rec).abs().max()) + int((valid != p_valid).sum()))
+    wire = engine.upload_records_wire(batch, max_records)
+    packed, bad_pos, offsets = wire
+    n_tot, n_pos, step = len(batch.codes), batch.num_positions, batch.step
+    err4, (codes, rec, valid) = check_restore(wire, n_pos, K, step, rng)
+    errors["records_wire"] = max(errors["records_wire"], err4)
     geom = dict(max_records=max_records, **engine.geometry())
     shortest = int(np.diff(batch.offsets).min())
     got = query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom)
     want = query.records_query_plain(codes, rec, valid, engine.table, **geom)
     errors["records_query"] = max(errors["records_query"], int((got.long() - want.long()).abs().max()))
+    genome = rng.integers(0, 4, size=1_000_000, dtype=np.uint8)
+    short = []
+    for i in range(65_536):
+        n = int(rng.integers(K + 1, 120))
+        at = int(rng.integers(0, len(genome) - n))
+        c = genome[at : at + n].copy()
+        if i % 9 == 0:
+            c[rng.integers(0, n)] = 255
+        short.append((f"s{i}", c))
+    sb = query.prepare_batch(short, K, step=2, chunk=engine.chunk)
+    s_err, _ = check_restore(query.upload_records_wire(sb, query._next_pow2(sb.num_records), codes.device),
+                             sb.num_positions, K, 2, rng)
+    errors["records_wire"] = max(errors["records_wire"], s_err)
+    log(f"  records_wire vs plain: one 4 Mbp assembly, max |err| {err4}; 65,536 short records "
+        f"({sb.num_positions} positions, step 2), max |err| {s_err}")
     require(errors["records_wire"] == 0 and errors["records_query"] == 0,
             "a records kernel disagrees with its plain version at the main path's shape")
 
-    k1_ms = cuda_ms(lambda: query.unpack_2bit(flat, zeros, bad_pos, n_tot), 20)
-    k1_plain = cuda_ms(lambda: query.unpack_2bit_plain(flat, zeros, bad_pos, n_tot), 3)
-    k4_ms = cuda_ms(lambda: query.records_wire(offsets, n_pos, k=K, step=batch.step), 20)
-    k4_plain = cuda_ms(lambda: query.records_wire_plain(offsets, n_pos, k=K, step=batch.step), 3)
-    k3_ms = cuda_ms(lambda: query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom), 10)
-    k3_plain = cuda_ms(lambda: query.records_query_plain(codes, rec, valid, engine.table, **geom), 1)
+    def restore():
+        return query.restore_records_wire(packed, bad_pos, offsets, n_pos, k=K, step=step)
 
-    k1_bytes = packed.numel() + 4 * bad_pos.numel() + n_tot
-    k4_bytes = 5 * n_pos + offsets.numel() * 4
+    k4 = timed(restore, 20)
+    k4_plain = cuda_ms(lambda: query.restore_records_wire_plain(packed, bad_pos, offsets, n_pos, k=K, step=step), 3)
+    k4_ids = timed(lambda: query.records_wire(offsets, n_pos, k=K, step=step), 20)
+    pos = torch.arange(n_pos, dtype=torch.int32, device=codes.device)
+    bounds = offsets[1:]
+    require(torch.equal(torch.searchsorted(bounds, pos, right=True, out_int32=True).clamp_(max=max_records - 1), rec),
+            "torch.searchsorted differs from K4's record ids")
+    library = timed(lambda: torch.searchsorted(bounds, pos, right=True, out_int32=True), 20)
+    k3 = timed(lambda: query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom), 10)
+    k3_plain = cuda_ms(lambda: query.records_query_plain(codes, rec, valid, engine.table, **geom), 1)
+    shape = f"{batch.num_records} contigs, {n_pos} positions, step {step}"
+
+    k4_bytes = packed.numel() + 4 * bad_pos.numel() + 4 * offsets.numel() + n_tot + 5 * n_pos
     b3 = records_bound(engine.index, codes, rec, valid, n_pos, got.numel() * 4)
     k3_bytes_ms, k3_ops_ms = b3["bytes_ms"], b3["ops_ms"]
     out = {
-        "unpack_2bit": dict(ms=k1_ms, plain_ms=k1_plain, bound_ms=k1_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"),
-        "records_wire": dict(ms=k4_ms, plain_ms=k4_plain, bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"),
+        "records_wire": dict(
+            k4, plain_ms=k4_plain, bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=library["ms"], library_device_ms=library["device_ms"],
+            library_computes="record ids only: torch.searchsorted(offsets[1:], pos, right=True, out_int32=True)",
+            ids_only=k4_ids,
+        ),
         "records_query": dict(
-            ms=k3_ms, plain_ms=k3_plain, bound_ms=max(k3_bytes_ms, k3_ops_ms),
+            k3, plain_ms=k3_plain, bound_ms=max(k3_bytes_ms, k3_ops_ms),
             bound_by="bytes" if k3_bytes_ms >= k3_ops_ms else "operations",
         ),
     }
-    shape = f"{batch.num_records} contigs, {n_pos} positions, step {batch.step}"
     for name, t in out.items():
-        log(f"  timing [{card}] {name} ({shape}): {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        log(f"  timing [{card}] {name} ({shape}): {ms_text(t)}, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']}), plain {t['plain_ms']:.4f} ms")
+    log(f"  timing [{card}] records_wire without codes ({shape}): {ms_text(k4_ids)}; torch.searchsorted "
+        f"(record ids only): {ms_text(library)}")
     log(f"  records_query: {bound_text(b3)}")
     real = int(batch.offsets[-1])
-    log(f"  device-side [{card}]: {real / ((k1_ms + k4_ms + k3_ms) / 1e3) / 1e6:.1f} M bases/s "
-        f"({real} bases; unpack + wire + query kernels)")
+    log(f"  device-side [{card}]: {real / ((k4['ms'] + k3['ms']) / 1e3) / 1e6:.1f} M bases/s "
+        f"({real} bases; wire + query kernels, call times)")
     return out
 
 
@@ -1092,8 +1220,8 @@ def run_records(rng, card, errors):
         e2e = time.time() - t0
         got = read_launches()
         log(f"  records step {step}: kernel launches {got}")
-        require(got["unpack_2bit"] > 0 and got["records_wire"] > 0 and got["records_query"] > 0,
-                "a kernel of the records path was not launched")
+        require(got["records_wire"] == got["records_query"] > 0 and got["unpack_2bit"] == 0,
+                "the records path did not launch K4 once per batch (one K3 each) and K1 never")
         require(got["reads_query"] == 0, "the records path launched reads_query")
         for name, v in got.items():
             launches[name] += v
@@ -1111,7 +1239,7 @@ def run_records(rng, card, errors):
 
     model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     batch = query.prepare_batch(assemblies[0][1], K, step=1, chunk=model.engine.chunk)
-    timings = time_records_kernels(model.engine, batch, card, errors)
+    timings = time_records_kernels(model.engine, batch, card, errors, rng)
     timings["records_query"]["classes_512"] = time_wide_records_query(batch, rng, card, errors)
     label, contigs = assemblies[0]
     single = json.loads((base / "species_step1" / "res_1.json").read_text(encoding="utf-8"))
@@ -1137,8 +1265,8 @@ def run_genus_assemblies(genus_genome, genus_idx, rng, card):
     e2e = time.time() - t0
     launches = read_launches()
     log(f"  genus assemblies: kernel launches {launches}")
-    require(launches["unpack_2bit"] > 0 and launches["records_wire"] > 0 and launches["records_query"] > 0,
-            "genus assemblies: a kernel of the records path was not launched")
+    require(launches["records_wire"] == launches["records_query"] > 0 and launches["unpack_2bit"] == 0,
+            "genus assemblies: K4 was not launched once per batch (one K3 each), or K1 was launched")
     require(launches["reads_query"] == 0, "genus assemblies: the records path launched reads_query")
     for a, contigs in enumerate(assemblies):
         res = json.loads((out.parent / f"res_{a + 1}.json").read_text(encoding="utf-8"))
@@ -1227,7 +1355,7 @@ def mlst_group(model, seqs, card, errors):
     seg_pad = np.zeros(max_records, dtype=np.int32)
     seg_pad[: len(seg)] = seg
     t2 = time.time()
-    packed, bad_pos, offsets, seg_ids = (torch.from_numpy(a).to(dev) for a in (*wire, seg_pad))
+    (packed, bad_pos, offsets), seg_ids = query.wire_to_device(wire, dev), torch.from_numpy(seg_pad).to(dev)
     torch.cuda.synchronize()
     t3 = time.time()
     n_pos = batch.num_positions
@@ -1247,7 +1375,7 @@ def mlst_group(model, seqs, card, errors):
     t7 = time.time()
     steps = {
         "split + encode + prepare_batch": t1 - t0, "pack": t2 - t1, "copy": t3 - t2,
-        "K1 + K4 + K5 + K6": t4 - t3, "fetch": t5 - t4, "assemble": t6 - t5, "result JSON": t7 - t6,
+        "K4 + K5 + K6": t4 - t3, "fetch": t5 - t4, "assemble": t6 - t5, "result JSON": t7 - t6,
     }
     shape = (f"{len(seqs)} genomes, {batch.num_records} pieces, max_records {max_records}, "
              f"{n_pos} positions, {len(tables)} tables x {geoms[0]['num_classes']} classes")
@@ -1277,10 +1405,11 @@ def mlst_group(model, seqs, card, errors):
             hz = torch.where(h > CHUNK_SCORE_THRESHOLD, h, 0)
             torch.zeros((len(seqs), h.shape[1]), dtype=torch.int32, device=dev).index_add_(0, seg_ids, hz)
 
-    k5_ms = cuda_ms(lambda: query.multi_records_query(
+    k5 = timed(lambda: query.multi_records_query(
         tables, geoms, codes, rec_ids, valid, max_records=max_records, min_record_len=hint), 5)
-    k6_ms = cuda_ms(lambda: query.reduce_record_counts(
+    k6 = timed(lambda: query.reduce_record_counts(
         counts, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs)), 20)
+    k5_ms, k6_ms = k5["ms"], k6["ms"]
     k6_plain = cuda_ms(lambda: query.reduce_record_counts_plain(
         counts, "thresholded_segment_totals", CHUNK_SCORE_THRESHOLD, seg_ids, len(seqs)), 5)
     k6_library = cuda_ms(library, 5)
@@ -1311,25 +1440,25 @@ def mlst_group(model, seqs, card, errors):
     k5_ops_ms = k5_ops / INT_OPS_PER_S * 1e3
     k6_bytes = out_bytes + 4 * max_records + sum(r.numel() * 4 for r in reduced)
     k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"  timing [{card}] multi_records_query ({shape}): {k5_ms:.4f} ms, bound {max(k5_bytes_ms, k5_ops_ms):.4f} ms "
+    log(f"  timing [{card}] multi_records_query ({shape}): {ms_text(k5)}, bound {max(k5_bytes_ms, k5_ops_ms):.4f} ms "
         f"(bytes {k5_bytes_ms:.4f} reading each of the {sum(run_sectors)} table sectors touched once, "
         f"operations {k5_ops_ms:.4f}), plain {k5_plain:.4f} ms")
     log(f"  multi_records_query: {counted} windows probed x {probes} words per table; {sum(window_sectors)} sectors "
         f"summed over windows and tables ({sum(window_sectors) / counted / len(engines):.3f} per window and table "
         f"under the row-major layout), {sum(run_sectors)} distinct over the run; bytes with no reuse between "
         f"windows {k5_reuse_free_ms:.4f} ms")
-    log(f"  timing [{card}] reduce_record_counts, segment totals ({shape}): {k6_ms:.4f} ms, bound {k6_bound:.4f} ms "
+    log(f"  timing [{card}] reduce_record_counts, segment totals ({shape}): {ms_text(k6)}, bound {k6_bound:.4f} ms "
         f"(bytes), plain {k6_plain:.4f} ms, PyTorch where + index_add_ per table {k6_library:.4f} ms "
         f"(where + sum per table, the totals form: {k6_totals_library:.4f} ms)")
     real = int(batch.offsets[-1])
     log(f"  device-side [{card}]: {real / (k5_ms + k6_ms) * 1e3 / 1e6:.1f} M bases/s ({real} bases; K5 + K6)")
     return {
         "multi_records_query": dict(
-            ms=k5_ms, plain_ms=k5_plain, bound_ms=max(k5_bytes_ms, k5_ops_ms),
+            k5, plain_ms=k5_plain, bound_ms=max(k5_bytes_ms, k5_ops_ms),
             bound_by="bytes" if k5_bytes_ms >= k5_ops_ms else "operations", library_ms=None,
         ),
         "reduce_record_counts": dict(
-            ms=k6_ms, plain_ms=k6_plain, bound_ms=k6_bound, bound_by="bytes", library_ms=k6_library,
+            k6, plain_ms=k6_plain, bound_ms=k6_bound, bound_by="bytes", library_ms=k6_library,
         ),
     }
 
@@ -1398,7 +1527,7 @@ def run_mlst(rng, card, errors):
     out = base / "mlst.json"
 
     launches = {name: 0 for name in KERNELS}
-    mlst_kernels = ("unpack_2bit", "records_wire", "multi_records_query", "reduce_record_counts")
+    mlst_kernels = ("records_wire", "multi_records_query", "reduce_record_counts")
     reset_launches()
     t0 = time.time()
     classify.classify_mlst(fasta, "smoke", "Oxford", out, limit=False, device="cuda")
@@ -1441,9 +1570,10 @@ def run_mlst(rng, card, errors):
         add_launches(launches, got)
         log(f"  end-to-end [{card}] MLST predict, batch_genomes {bg}: {len(records)} records ({MLST_GENOMES} genomes of "
             f"{GENOME_LEN} bp) in {e2e:.2f} s, {MLST_GENOMES / e2e:.2f} genomes/s, {total_bases / e2e / 1e6:.2f} M bases/s; "
-            f"launches K5 {got['multi_records_query']}, K6 {got['reduce_record_counts']}")
+            f"launches K4 {got['records_wire']}, K5 {got['multi_records_query']}, K6 {got['reduce_record_counts']}")
         # every locus of this scheme takes K5's 4-word path: one K5 launch a group
-        require(got["multi_records_query"] == got["reduce_record_counts"] > 0, "MLST predict: K5 and K6 launches differ")
+        require(got["records_wire"] == got["multi_records_query"] == got["reduce_record_counts"] > 0
+                and got["unpack_2bit"] == 0, "MLST predict: K4, K5 and K6 launches differ, or K1 was launched")
     require(by_batch[1] == by_batch[4] == by_batch[8] == res["Results"], "MLST: results differ between batch sizes")
     log("  MLST: batch_genomes 1, 4 and 8 and classify_mlst give identical Results")
 
@@ -1532,11 +1662,11 @@ def time_xxh3_batch(filt, batch):
     shortest = int(np.diff(batch.offsets).min())
     got = bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=shortest, **geom)
     plain = bloom.xxh3_records_count_plain(words, codes, rec, valid, **geom)
-    ms = cuda_ms(lambda: bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=shortest, **geom), 10)
+    t = timed(lambda: bloom.xxh3_records_count(words, codes, rec, valid, min_record_len=shortest, **geom), 10)
     plain_ms = cuda_ms(lambda: bloom.xxh3_records_count_plain(words, codes, rec, valid, **geom), 1, warm=False)
     b = xxh3_bound(filt, codes, rec, valid.bool(), batch.num_positions, max_records)
     bound = dict(bytes_ms=b[0], ops_ms=b[1], counted=b[2], probes=b[3], sectors=b[4])
-    return ms, plain_ms, bound, got[: batch.num_records], plain[: batch.num_records]
+    return t, plain_ms, bound, got[: batch.num_records], plain[: batch.num_records]
 
 
 def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
@@ -1586,11 +1716,11 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     api_counts = [[filt.count_hits_sequence(seq_str(c)) for _, c in picks] for picks in sampled]
     launches = read_launches()
     log(f"  xxh3 genus: kernel launches {launches} ({n_batches} record batches)")
-    require(launches["xxh3_records_count"] == launches["unpack_2bit"] == launches["records_wire"] == n_batches,
-            "xxh3 genus: K1, K4 and K7 were not launched once per record batch")
+    require(launches["xxh3_records_count"] == launches["records_wire"] == n_batches,
+            "xxh3 genus: K4 and K7 were not launched once per record batch")
     require(launches["bloom_count"] == sum(len(p) for p in sampled), "xxh3 genus: count_hits_sequence did not launch bloom_count")
     require(all(v == 0 for name, v in launches.items() if name not in
-                ("xxh3_records_count", "unpack_2bit", "records_wire", "bloom_count")),
+                ("xxh3_records_count", "records_wire", "bloom_count")),
             "xxh3 genus launched another path's kernel")
     checked = 0
     for a, contigs in enumerate(assemblies):
@@ -1621,8 +1751,9 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     r_e2e = time.time() - t0
     r_launches = read_launches()
     log(f"  xxh3 genus reads: kernel launches {r_launches} ({r_batches} record batches)")
-    require(r_launches["xxh3_records_count"] == r_launches["unpack_2bit"] == r_launches["records_wire"] == r_batches
-            and r_launches["bloom_count"] == 0, "xxh3 genus reads: K1, K4 and K7 were not launched once per record batch")
+    require(r_launches["xxh3_records_count"] == r_launches["records_wire"] == r_batches
+            and r_launches["bloom_count"] == r_launches["unpack_2bit"] == 0,
+            "xxh3 genus reads: K4 and K7 were not launched once per record batch, or K1 was launched")
     add_launches(launches, r_launches)
     hits = json.loads((base / "reads.json").read_text(encoding="utf-8"))["hits"]
     require(len(hits) == XXH3_READS, f"xxh3 genus reads: {len(hits)} records in the result")
@@ -1638,7 +1769,7 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     # the new K7 at one 4 Mbp assembly: time, bound, plain time; the old path on it
     contigs = assemblies[0]
     batch = query.prepare_batch(contigs, K)
-    ms, plain_ms, b, got, plain = time_xxh3_batch(filt, batch)
+    k7, plain_ms, b, got, plain = time_xxh3_batch(filt, batch)
     err = int((got - plain).abs().max())
     errors["xxh3_records_count"] = max(errors["xxh3_records_count"], err)
     require(err == 0, "xxh3_records_count disagrees with its plain version at one 4 Mbp assembly")
@@ -1649,7 +1780,7 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     old_s = time.time() - t0
     require(old == got.tolist(), "the old path (host hashing, bloom_count per contig) differs from the new K7")
     log(f"  timing [{card}] xxh3_records_count (one 4 Mbp assembly: {batch.num_records} contigs, {batch.num_positions} "
-        f"positions, {b['counted']} windows hashed, {b['probes']} probes evaluated): {ms:.4f} ms, bound {bound:.4f} ms "
+        f"positions, {b['counted']} windows hashed, {b['probes']} probes evaluated): {ms_text(k7)}, bound {bound:.4f} ms "
         f"(bytes {b['bytes_ms']:.4f} with each of the {b['sectors']} filter sectors touched read once, operations "
         f"{b['ops_ms']:.4f}), plain {plain_ms:.4f} ms; the old path on the same contigs (host hashing, one "
         f"position-based launch and fetch a contig) {old_s * 1e3:.1f} ms on the host clock")
@@ -1666,10 +1797,10 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     errors["bloom_count"] = max(errors["bloom_count"], abs(k7_got - k7_plain),
                                 abs(k7_got - filt.count_hits_host(hi, lo, valid)))
     require(errors["bloom_count"] == 0, "bloom_count disagrees at the longest contig")
-    k7_ms = cuda_ms(lambda: bloom.bloom_count(words, pos, mask), 20)
+    k7p = timed(lambda: bloom.bloom_count(words, pos, mask), 20)
     k7_plain_ms = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
     k7_bytes_ms, k7_ops_ms, sectors = bloom_bound(pos, mask, filt.num_hashes)
-    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {k7_ms:.4f} ms, "
+    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {ms_text(k7p)}, "
         f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
         f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain_ms:.4f} ms")
     # its launches of the run: one per sampled contig of count_hits_sequence
@@ -1686,7 +1817,8 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     for path in [in_dir / f"gasm{a}.fasta" for a in range(len(assemblies))] + [fastq]:
         for recs in model._iter_record_batches(get_record_iterator(path)):
             bt = query.prepare_batch([(r.id, dna.encode(r.seq)) for r in recs], K)
-            t_ms, _, tb, t_got, t_plain = time_xxh3_batch(filt, bt)
+            tt, _, tb, t_got, t_plain = time_xxh3_batch(filt, bt)
+            t_ms = tt["ms"]
             errors["xxh3_records_count"] = max(errors["xxh3_records_count"], int((t_got - t_plain).abs().max()))
             run_gap += t_ms - max(tb["bytes_ms"], tb["ops_ms"])
             shapes.append(f"{bt.num_records} records {t_ms:.4f} ms")
@@ -1695,12 +1827,12 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
         f"time less bound summed {run_gap:.4f} ms")
     return launches, {
         "xxh3_records_count": dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            k7, plain_ms=plain_ms, bound_ms=bound,
             bound_by="bytes" if b["bytes_ms"] >= b["ops_ms"] else "operations", library_ms=None,
             run_gap_ms=run_gap, old_path_ms=old_s * 1e3,
         ),
         "bloom_count": dict(
-            ms=k7_ms, plain_ms=k7_plain_ms, bound_ms=max(k7_bytes_ms, k7_ops_ms),
+            k7p, plain_ms=k7_plain_ms, bound_ms=max(k7_bytes_ms, k7_ops_ms),
             bound_by="bytes" if k7_bytes_ms >= k7_ops_ms else "operations", library_ms=None,
             run_gap_ms=api_gap,
         ),
@@ -2072,8 +2204,9 @@ def run_nccl_world_of_one(asm, card):
         dist.destroy_process_group()
     launches = read_launches()
     log(f"  sharded public methods: kernel launches {launches}; SVM head calls {SVMHead.calls - calls}")
-    require(all(launches[name] > 0 for name in ("unpack_2bit", "reads_query", "records_wire", "records_query")),
-            "a kernel of the sharded path was not launched")
+    require(launches["unpack_2bit"] == launches["reads_query"] > 0
+            and launches["records_wire"] == launches["records_query"] > 0,
+            "the sharded path did not launch K1 once per K2 launch and K4 once per K3 launch")
     engine = model.engine
     codes = query.unpack_2bit(*engine.upload_wire(reads, 4096), READ_LEN)
     k2 = time_reads_launch("the shape of these runs: the 40-class table", idx, codes, engine.table,
@@ -2119,7 +2252,7 @@ def run_microbench(card, errors):
     errors["probe_select"] = max(errors["probe_select"], int((got.long() - want.long()).abs().max()))
     require(errors["probe_select"] == 0, "probe_select disagrees with its plain version at the microbenchmark's shape")
     del want
-    k8_ms = cuda_ms(lambda: probe_select(selbits, blocks, rows_per_block=rpb, class_words=cw), 20)
+    k8 = timed(lambda: probe_select(selbits, blocks, rows_per_block=rpb, class_words=cw), 20)
     k8_plain = cuda_ms(lambda: probe_select_plain(selbits, blocks, rows_per_block=rpb, class_words=cw), 2)
     gather_ms = cuda_ms(lambda: table.index_select(0, block), 10)
     k8_bytes = t * (512 + 4 * selbits.shape[1] + 4 * cw)
@@ -2131,11 +2264,11 @@ def run_microbench(card, errors):
     k2 = time_reads_launch("the microbenchmark's 50 MB table, one pass", mb_idx, mb_reads, table,
                            dict(step=1, **geom), card)
     log(f"  timing [{card}] probe_select ([{t}, 128] blocks, {selbits.shape[1]} mask words, cw={cw}; one chunk of 8,192 "
-        f"reads): {k8_ms:.4f} ms, bound {max(k8_bound, k8_ops_ms):.4f} ms (bytes {k8_bound:.4f}: {k8_bytes} B once; "
+        f"reads): {ms_text(k8)}, bound {max(k8_bound, k8_ops_ms):.4f} ms (bytes {k8_bound:.4f}: {k8_bytes} B once; "
         f"operations {k8_ops_ms:.4f}), plain {k8_plain:.4f} ms; the gather that feeds it (index_select) {gather_ms:.4f} ms")
     return launches, {
         "probe_select": dict(
-            ms=k8_ms, plain_ms=k8_plain, bound_ms=max(k8_bound, k8_ops_ms),
+            k8, plain_ms=k8_plain, bound_ms=max(k8_bound, k8_ops_ms),
             bound_by="bytes" if k8_bound >= k8_ops_ms else "operations", library_ms=None,
         ),
     }, k2

@@ -208,3 +208,65 @@ def test_kernel_library_name_hashes_included_headers(tmp_path, monkeypatch):
     header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
     changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
     assert changed == {"xxh3_bloom"}
+
+
+def test_wire_kernels_hash_their_shared_header(tmp_path, monkeypatch):
+    """``wire_tile.cuh`` renames K1's and K4's libraries and no other."""
+    import shutil
+
+    from xspect2_tpu_torch.ops import _kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    before = {name: _kernels.library_path(name) for name in _kernels.SIGNATURES}
+    header = csrc / "wire_tile.cuh"
+    header.write_text(header.read_text(encoding="utf-8") + "\n// edited\n", encoding="utf-8")
+    changed = {name for name in _kernels.SIGNATURES if _kernels.library_path(name) != before[name]}
+    assert changed == {"unpack_2bit", "records_wire"}
+
+
+def test_wire_wrappers_launch_their_kernel_for_a_tensor_off_the_cpu(monkeypatch):
+    """For a tensor that is not on the CPU (here on the ``meta`` device) K1
+    and K4 launch their kernel, never their plain version: one launch for
+    a patch list that ``upload_patch_list`` found ascending, a second
+    (patch-only) one for any other, and the records path's restore is a
+    K4 launch, never a K1 one."""
+    import types
+
+    from xspect2_tpu_torch.ops import _kernels, query
+
+    calls = []
+
+    def entry(name):
+        return lambda *args: calls.append((name, args)) or 0
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a wrapper fell back to its plain version")
+
+    monkeypatch.setattr(_kernels, "entry", entry)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for name in ("unpack_2bit_plain", "records_wire_plain", "restore_records_wire_plain"):
+        monkeypatch.setattr(query, name, plain)
+    meta = torch.device("meta")
+    packed = torch.empty((64, 38), dtype=torch.uint8, device=meta)
+    marked = query.upload_patch_list(np.arange(16, dtype=np.int32), meta)
+    unmarked = torch.empty(16, dtype=torch.int32, device=meta)
+    for ascending, launches in ((True, 1), (False, 2)):
+        rows = marked if ascending else unmarked
+        before = query.unpack_2bit.launches
+        codes = query.unpack_2bit(packed, rows, rows, 150)
+        assert codes.shape == (64, 150) and codes.device == meta
+        assert query.unpack_2bit.launches - before == launches
+        assert calls[-1][0] == "unpack_2bit" and calls[-1][1][-3:-1] == (16, int(ascending))
+    flat = torch.empty(1000, dtype=torch.uint8, device=meta)
+    offsets = torch.empty(9, dtype=torch.int32, device=meta)
+    for ascending, launches in ((True, 1), (False, 2)):
+        before = query.records_wire.launches, query.unpack_2bit.launches
+        rows = marked if ascending else unmarked
+        codes, rec, valid = query.restore_records_wire(flat, rows, offsets, 3980, k=21, step=2)
+        assert (codes.shape, rec.shape, valid.shape) == ((4000,), (3980,), (3980,))
+        assert (query.records_wire.launches - before[0], query.unpack_2bit.launches - before[1]) == (launches, 0)
+        assert calls[-1][0] == "records_wire" and calls[-1][1][3:5] == (16, int(ascending))
+    rec, valid = query.records_wire(offsets, 3980, k=21, step=2)
+    assert calls[-1][0] == "records_wire" and calls[-1][1][0] is None and rec.shape == (3980,)

@@ -46,18 +46,53 @@ def _reads(rng, genomes, n, read_len):
     return out
 
 
+def _patch_lists(wire, rng):
+    """The ascending list ``pack_reads_wire`` emits and the lists K1 must
+    take in any order: ``(name, rows, cols, kernel launches)``."""
+    rows, cols = wire[1], wire[2]
+    perm = torch.from_numpy(rng.permutation(rows.numel())).to(rows.device)
+    sentinel = query.upload_patch_list(np.full(8, wire[0].shape[0], dtype=np.int32), rows.device)
+    return [("ascending", rows, cols, 1), ("shuffled", rows[perm], cols[perm], 2),
+            ("empty", rows[:0], cols[:0], 1), ("sentinels only", sentinel, torch.zeros_like(sentinel), 1)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("read_len", [150, 300])
+@pytest.mark.parametrize("read_len", [5, 15, 31, 100, 150, 300, 301, 8193, 10001])
 def test_unpack_kernel_matches_plain(cuda_device, read_len):
+    """K1 equals its plain version on ``pack_reads_wire``'s list (one launch, the
+    patches inside it) and on a shuffled, an empty and a sentinel-only
+    list (a shuffled list takes the patch-only launch as well): reads
+    shorter than 16 bases (the codes built with a running column), of
+    lengths not a multiple of 4 or 16, and longer than the 8,192-code
+    tile (every tile starting and ending inside a row)."""
     rng = np.random.default_rng(read_len)
+    k = 21 if read_len > 21 else read_len - 2  # the padding rows are poisoned every k bases
     reads = rng.integers(0, 4, size=(1000, read_len), dtype=np.uint8)
     reads[rng.integers(0, 1000, 50), rng.integers(0, read_len, 50)] = 255
-    wire = [torch.from_numpy(a).to(cuda_device) for a in query.pack_reads_wire(reads, 21, 1024)]
+    reads[7, :] = 255  # a read of N only
+    wire = query.wire_to_device(query.pack_reads_wire(reads, k, 1024), cuda_device)
     assert int((wire[1] >= 1024).sum()) > 0  # sentinel entries are present
+    for name, rows, cols, launches in _patch_lists(wire, rng):
+        before = query.unpack_2bit.launches
+        got = query.unpack_2bit(wire[0], rows, cols, read_len)
+        assert query.unpack_2bit.launches == before + launches, name
+        torch.testing.assert_close(got, query.unpack_2bit_plain(wire[0], rows, cols, read_len), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_unpack_kernel_at_the_species_reads_shape(cuda_device):
+    """K1 at the main path's shape: 401,408 rows of 150 bases, the padding
+    rows poisoned, 16,384 patch entries with the sentinels; one launch."""
+    rng = np.random.default_rng(5)
+    reads = rng.integers(0, 4, size=(400_000, 150), dtype=np.uint8)
+    bad = rng.random(400_000) < 0.002
+    reads[bad, rng.integers(0, 150, size=int(bad.sum()))] = 255
+    wire = query.wire_to_device(query.pack_reads_wire(reads, 21, 401_408), cuda_device)
+    assert wire[1].numel() == 16_384
     before = query.unpack_2bit.launches
-    got = query.unpack_2bit(*wire, read_len)
+    got = query.unpack_2bit(*wire, 150)
     assert query.unpack_2bit.launches == before + 1
-    torch.testing.assert_close(got, query.unpack_2bit_plain(*wire, read_len), rtol=0, atol=0)
+    torch.testing.assert_close(got, query.unpack_2bit_plain(*wire, 150), rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -124,6 +159,55 @@ def test_records_wire_kernel_matches_plain(cuda_device, num_records, step):
     want_rec, want_valid = query.records_wire_plain(offsets, batch.num_positions, k=21, step=step)
     torch.testing.assert_close(rec, want_rec, rtol=0, atol=0)
     assert torch.equal(valid, want_valid)
+    np.testing.assert_array_equal(valid.cpu().numpy(), batch.valid)
+
+
+def _assembly(rng, length=4_000_000, contigs=86):
+    """A 4 Mbp draft assembly: long-tailed contig lengths, a few N runs."""
+    genome = rng.integers(0, 4, size=length, dtype=np.uint8)
+    cuts = np.sort(rng.choice(np.arange(300, length - 300), contigs - 1, replace=False))
+    out = []
+    for i, c in enumerate(np.split(genome, cuts)):
+        c = c.copy()
+        if i % 10 == 0 and len(c) > 500:
+            c[200:300] = 255
+        out.append((f"c{i}", c))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["4 Mbp assembly", "65,536 short records"])
+@pytest.mark.parametrize("step", [1, 4])
+def test_restore_records_wire_kernel_matches_plain(cuda_device, shape, step):
+    """K4 restores codes, record ids and validity in one launch on the
+    ascending list of ``packed_wire_for_batch``, and equals its plain
+    version there and on a shuffled (one more, patch-only launch), an empty
+    and a sentinel-only list: on the flat wire of one 4 Mbp assembly and of
+    65,536 short records, with max_records padded by empty records."""
+    rng = np.random.default_rng(step)
+    if shape == "4 Mbp assembly":
+        records = _assembly(rng)
+    else:
+        genome = rng.integers(0, 4, size=200_000, dtype=np.uint8)
+        records = _records(rng, [genome], 65_536, 22, 120)
+    batch = query.prepare_batch(records, 21, step=step)
+    max_records = query._next_pow2(max(8, batch.num_records)) * 2  # empty records past the real ones
+    packed, bad_pos, offsets = query.upload_records_wire(batch, max_records, cuda_device)
+    n_pos, n_tot = batch.num_positions, len(batch.codes)
+    perm = torch.from_numpy(rng.permutation(bad_pos.numel())).to(cuda_device)
+    sentinel = query.upload_patch_list(np.full(8, n_tot, dtype=np.int32), cuda_device)
+    for name, patches, launches in (("ascending", bad_pos, 1), ("shuffled", bad_pos[perm], 2),
+                                    ("empty", bad_pos[:0], 1), ("sentinels only", sentinel, 1)):
+        before = query.records_wire.launches, query.unpack_2bit.launches
+        got = query.restore_records_wire(packed, patches, offsets, n_pos, k=21, step=step)
+        assert (query.records_wire.launches - before[0], query.unpack_2bit.launches - before[1]) == (
+            launches, 0), name
+        want = query.restore_records_wire_plain(packed, patches, offsets, n_pos, k=21, step=step)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    codes, rec, valid = query.restore_records_wire(packed, bad_pos, offsets, n_pos, k=21, step=step)
+    real = int(batch.offsets[-1])  # the padding past it is not patched: no valid window reads it
+    np.testing.assert_array_equal(codes[:real].cpu().numpy(), batch.codes[:real])
     np.testing.assert_array_equal(valid.cpu().numpy(), batch.valid)
 
 
@@ -232,8 +316,9 @@ def test_reduce_kernel_matches_plain(cuda_device, mode, threshold, max_records):
 
 @pytest.mark.cuda
 def test_multi_packed_query_launches_each_kernel_once(cuda_device):
-    """One fused call: K1 and K4 once, K5 once for each probe path among
-    the tables (three here), K6 once."""
+    """One fused call on ``packed_wire_for_batch``'s list: K4 once (codes, record ids
+    and validity), K1 never, K5 once for each probe path among the tables
+    (three here), K6 once."""
     rng = np.random.default_rng(3)
     indices, engines, records, batch, max_records, _ = _multi_case(rng, cuda_device, 20, 100, 600)
     wire = engines[0].upload_records_wire(batch, max_records)
@@ -249,6 +334,7 @@ def test_multi_packed_query_launches_each_kernel_once(cuda_device):
     paths = len({query._probe_kind(e.geometry()) for e in engines})
     assert paths == 3
     assert {n: getattr(query, n).launches - before[n] for n in names} == {**dict.fromkeys(names, 1),
+                                                                          "unpack_2bit": 0,
                                                                           "multi_records_query": paths}
     for idx, out in zip(indices, outs):
         host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21)) for _, c in records])

@@ -231,8 +231,8 @@ class XXH3BloomFilter:
         :meth:`count_hits_host` gives it on the record's canonical k-mers
         at the batch's step.
 
-        Everything runs on the device: K1 and K4 restore the codes,
-        record ids and validity from the batch's compact wire, K7
+        Everything runs on the device: K4 restores the codes, record ids
+        and validity from the batch's compact wire in one launch, K7
         (:func:`~xspect2_tpu_torch.ops.bloom.xxh3_records_count`) hashes
         and tests every valid window, one launch each, and one fetch
         brings the counts back.

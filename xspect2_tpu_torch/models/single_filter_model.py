@@ -9,8 +9,8 @@ One Bloom-filter column holding the canonical k-mers of a whole genus.
 - ``"xxh3"``: the compat mode (:mod:`xspect2_tpu_torch.core.compat`):
   XXH3-64 over the ASCII canonical k-mer string; a parity and
   verification mode.  Its queries take the records route in batches:
-  K1 and K4 restore each batch on the device and K7 hashes, tests and
-  counts every record's windows there, one launch per batch.
+  K4 restores each batch on the device in one launch and K7 hashes,
+  tests and counts every record's windows there, one launch per batch.
 """
 
 import json

@@ -33,13 +33,16 @@ _i64 = ctypes.c_int64
 # C entry point and argtypes of each kernel library: every pointer and
 # the stream as c_void_p, so ctypes never truncates them to 32 bits
 SIGNATURES = {
-    "unpack_2bit": ("xs_unpack_2bit", [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _vp]),
+    "unpack_2bit": ("xs_unpack_2bit", [_vp, _vp, _vp, _vp, _i64, _i32, _i32, _i64, _i32, _vp]),
     "reads_query": (
         "xs_reads_query",
         [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i32,
          _i64, _i32, _i64, _i64, _vp],
     ),
-    "records_wire": ("xs_records_wire", [_vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp]),
+    "records_wire": (
+        "xs_records_wire",
+        [_vp, _i64, _vp, _i64, _i32, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _vp],
+    ),
     "records_query": (
         "xs_records_query",
         [_vp, _vp, _vp, _vp, _vp, _i64, _i32, _i64, _i32, _i32, _i32, _i32, _i32, _i32,

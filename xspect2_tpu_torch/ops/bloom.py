@@ -2,7 +2,7 @@
 
 :func:`xxh3_records_count` (``csrc/xxh3_bloom.cu``) is the model's path:
 from the records route's device tensors (codes, record ids, validity,
-restored by K1 and K4 from the compact wire) it hashes every valid
+restored by K4 from the compact wire in one launch) it hashes every valid
 window with XXH3-64 over its ASCII canonical k-mer, derives the probe
 positions and tests the filter's bits, all on the card, and counts hits
 per record: one launch per record batch.

@@ -7,7 +7,8 @@ Uniform reads (the FASTQ path):
 1. :func:`pack_reads_wire` (host) 2-bit packs an [N, L] code matrix and
    lists the invalid bases as (row, column) patches;
 2. :func:`unpack_2bit` (kernel K1, ``csrc/unpack_2bit.cu``) restores
-   the [N, L] uint8 codes on the device;
+   the [N, L] uint8 codes and their invalid-base patches on the device
+   in one launch;
 3. :func:`reads_query` (kernel K2, ``csrc/reads_query.cu``) stages the
    codes 2-bit packed, canonicalizes and hashes every kept k-mer window,
    ANDs its probe words and counts per-read, per-class hits.
@@ -18,18 +19,18 @@ Ragged records (assemblies, record lists):
    stream padded to a power-of-two number of chunks
    (:class:`PreparedBatch`); :func:`packed_wire_for_batch` 2-bit packs
    it with a flat invalid-base patch list and the record offsets;
-2. K1 unpacks the flat wire as one row;
-3. :func:`records_wire` (kernel K4, ``csrc/records_wire.cu``) derives
-   each position's record id and window validity from the offsets;
-4. :func:`records_query` (kernel K3, ``csrc/records_query.cu``) counts
+2. :func:`restore_records_wire` (kernel K4, ``csrc/records_wire.cu``)
+   restores the codes, each position's record id and its window
+   validity in one launch;
+3. :func:`records_query` (kernel K3, ``csrc/records_query.cu``) counts
    per-record, per-class hits of every valid window.  The raw wire
    ships codes, record ids and validity and goes to K3 directly.
 
 Several indices over one batch (MLST strain typing, one index per
 locus; :func:`make_multi_packed_query`):
 
-1. K1 and K4 restore codes, record ids and validity from the compact
-   wire once;
+1. K4 restores codes, record ids and validity from the compact wire
+   once;
 2. :func:`multi_records_query` (kernel K5,
    ``csrc/multi_records_query.cu``) counts per-record, per-class hits
    against every table, in one launch per probe path among them;
@@ -257,14 +258,42 @@ def packed_wire_for_batch(batch: PreparedBatch, max_records: int):
     return packed, bad_pos, offsets
 
 
+def upload_patch_list(patches: np.ndarray, device) -> torch.Tensor:
+    """An int32 patch list (``bad_rows`` of the read wire, ``bad_pos`` of
+    the records wire) as a tensor on ``device``, marked as ascending when
+    it never decreases.  The order is checked here, on the host, where the
+    wire is made: K1 and K4 set the patches of a marked list in the same
+    launch as the unpack, and take a second, patch-only launch for any
+    other list, or for a marked one changed in place since."""
+    t = torch.from_numpy(np.ascontiguousarray(patches)).to(device)
+    if bool(np.all(patches[1:] >= patches[:-1])):
+        t._ascending_at = t._version
+    return t
+
+
+def _ascending(patches: torch.Tensor) -> bool:
+    """Whether :func:`upload_patch_list` found ``patches`` ascending and it
+    is unchanged since."""
+    return getattr(patches, "_ascending_at", None) == patches._version
+
+
+def wire_to_device(wire, device):
+    """A wire's host arrays on ``device``: ``(packed, bad_rows, bad_cols)``
+    of :func:`pack_reads_wire` or ``(packed, bad_pos, offsets)`` of
+    :func:`packed_wire_for_batch`, the patch list (the second) through
+    :func:`upload_patch_list`."""
+    packed, patches, rest = wire
+    return (torch.from_numpy(packed).to(device), upload_patch_list(patches, device),
+            torch.from_numpy(rest).to(device))
+
+
 def upload_records_wire(batch: PreparedBatch, max_records: int, device):
     """The compact wire of a prepared batch (:func:`packed_wire_for_batch`)
-    as tensors on ``device``, cached on the batch."""
+    as tensors on ``device`` (:func:`wire_to_device`), cached on the batch."""
     key = (max_records, str(device))
     dev = batch._device_wire.get(key)
     if dev is None:
-        wire = packed_wire_for_batch(batch, max_records)
-        dev = tuple(torch.from_numpy(a).to(device) for a in wire)
+        dev = wire_to_device(packed_wire_for_batch(batch, max_records), device)
         batch._device_wire[key] = dev
     return dev
 
@@ -294,7 +323,11 @@ def unpack_2bit(
 
     ``packed`` is uint8 [N, ceil(read_len/4)] with base b at bits
     ``2*(b%4)`` of byte ``b//4``; ``bad_rows``/``bad_cols`` are int32
-    patch lists whose entries outside the matrix are dropped.
+    patch lists whose entries outside the matrix are dropped.  K1 sets
+    the patches in the same launch as the unpack when ``bad_rows`` was
+    uploaded by :func:`upload_patch_list` and found ascending there, as
+    every list :func:`pack_reads_wire` builds is; any other list takes a
+    second, patch-only launch.
     """
     if packed.dtype != torch.uint8 or packed.dim() != 2:
         raise ValueError("packed must be a 2-D uint8 tensor")
@@ -310,18 +343,21 @@ def unpack_2bit(
     for t in (bad_rows, bad_cols):
         if t.device != packed.device:
             raise ValueError("packed and patch lists must share one device")
-    packed = packed.contiguous()
+    ascending = _ascending(bad_rows)
+    packed = _aligned(packed, "packed")
     bad_rows = bad_rows.contiguous()
     bad_cols = bad_cols.contiguous()
+    m = bad_rows.numel()
     codes = torch.empty((n, read_len), dtype=torch.uint8, device=packed.device)
     fn = _kernels.entry("unpack_2bit")
     stream = torch.cuda.current_stream(packed.device).cuda_stream
     rc = fn(
         packed.data_ptr(), codes.data_ptr(), bad_rows.data_ptr(), bad_cols.data_ptr(),
-        n, l4, read_len, bad_rows.numel(), stream,
+        n, l4, read_len, m, int(ascending), stream,
     )
     _kernels.check("unpack_2bit", rc)
-    unpack_2bit.launches += 1
+    if codes.numel():
+        unpack_2bit.launches += 1 if ascending or not m else 2
     return codes
 
 
@@ -399,13 +435,13 @@ def table_tensor(index: BlockedBitSlicedIndex, device) -> torch.Tensor:
     return torch.tensor(words, device=device)
 
 
-def _aligned(table: torch.Tensor) -> torch.Tensor:
-    """``table`` contiguous; it must be 16-byte aligned, since the kernels
-    read probe rows with vector loads."""
-    table = table.contiguous()
-    if table.data_ptr() % 16:
-        raise ValueError("the table must start at a 16-byte aligned address")
-    return table
+def _aligned(t: torch.Tensor, what: str = "the table") -> torch.Tensor:
+    """``t`` contiguous; it must be 16-byte aligned, since the kernels read
+    it (probe rows, packed wire bytes) with vector loads."""
+    t = t.contiguous()
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what} must start at a 16-byte aligned address")
+    return t
 
 
 def _counter_rows(num_classes: int) -> int:
@@ -644,6 +680,40 @@ def records_wire_plain(offsets: torch.Tensor, n_pos: int, *, k: int, step: int):
     return rec, (rel < nk_r) & (rel % step == 0)
 
 
+def _check_offsets(offsets, n_pos, k, step):
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.numel() < 2:
+        raise ValueError("offsets must be a 1-D int32 tensor of at least 2 entries")
+    if not 1 <= k <= 32 or step < 1 or n_pos < 0:
+        raise ValueError("need 1 <= k <= 32, step >= 1 and n_pos >= 0")
+
+
+def _records_wire_launch(packed, bad_pos, offsets, n_pos, k, step):
+    """K4 on the card: ``(codes or None, rec_ids, valid)``; no codes when
+    ``packed`` is None."""
+    dev = offsets.device
+    offsets = offsets.contiguous()
+    codes = None
+    ascending = bad_pos is None or _ascending(bad_pos)
+    if packed is not None:
+        packed, bad_pos = _aligned(packed, "packed"), bad_pos.contiguous()
+        codes = torch.empty(n_pos + k - 1, dtype=torch.uint8, device=dev)
+    rec_ids = torch.empty(n_pos, dtype=torch.int32, device=dev)
+    valid = torch.empty(n_pos, dtype=torch.bool, device=dev)
+    m = 0 if bad_pos is None else bad_pos.numel()
+    fn = _kernels.entry("records_wire")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(
+        None if packed is None else packed.data_ptr(), 0 if packed is None else packed.numel(),
+        None if bad_pos is None else bad_pos.data_ptr(), m, int(ascending), offsets.data_ptr(),
+        None if codes is None else codes.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(),
+        n_pos, offsets.numel() - 1, k, step, stream,
+    )
+    _kernels.check("records_wire", rc)
+    if (codes if codes is not None else rec_ids).numel():
+        records_wire.launches += 1 if codes is None or ascending or not m else 2
+    return codes, rec_ids, valid
+
+
 def records_wire(offsets: torch.Tensor, n_pos: int, *, k: int, step: int):
     """Record id and window validity of every position of a flat batch.
 
@@ -653,26 +723,51 @@ def records_wire(offsets: torch.Tensor, n_pos: int, *, k: int, step: int):
     ``rec_ids`` is ``searchsorted(offsets[1:], pos, side="right")``
     clamped to ``max_records - 1``, and a position is valid when a
     whole window of its record starts there on the record's own
-    sparse-sampling phase.
+    sparse-sampling phase.  On the card this is a launch of K4 without
+    codes (:func:`restore_records_wire` is the one the paths use).
     """
-    if offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.numel() < 2:
-        raise ValueError("offsets must be a 1-D int32 tensor of at least 2 entries")
-    if not 1 <= k <= 32 or step < 1 or n_pos < 0:
-        raise ValueError("need 1 <= k <= 32, step >= 1 and n_pos >= 0")
+    _check_offsets(offsets, n_pos, k, step)
     if offsets.device.type == "cpu":
         return records_wire_plain(offsets, n_pos, k=k, step=step)
-    offsets = offsets.contiguous()
-    rec_ids = torch.empty(n_pos, dtype=torch.int32, device=offsets.device)
-    valid = torch.empty(n_pos, dtype=torch.bool, device=offsets.device)
-    fn = _kernels.entry("records_wire")
-    stream = torch.cuda.current_stream(offsets.device).cuda_stream
-    rc = fn(
-        offsets.data_ptr(), rec_ids.data_ptr(), valid.data_ptr(), n_pos,
-        offsets.numel() - 1, k, step, stream,
-    )
-    _kernels.check("records_wire", rc)
-    records_wire.launches += 1
-    return rec_ids, valid
+    return _records_wire_launch(None, None, offsets, n_pos, k, step)[1:]
+
+
+def restore_records_wire_plain(packed, bad_pos, offsets, n_pos: int, *, k: int, step: int):
+    """Plain PyTorch version of :func:`restore_records_wire`."""
+    n_tot = n_pos + k - 1
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=packed.device)
+    codes = ((packed[:, None] >> shifts) & 3).reshape(-1)[:n_tot].contiguous()
+    pos = bad_pos.long()
+    codes[pos[(pos >= 0) & (pos < n_tot)]] = 255
+    return (codes, *records_wire_plain(offsets, n_pos, k=k, step=step))
+
+
+def restore_records_wire(packed, bad_pos, offsets, n_pos: int, *, k: int, step: int):
+    """Codes, record ids and validity of a compact records wire
+    (:func:`packed_wire_for_batch`) on its device, in one launch of K4.
+
+    ``packed`` is uint8 [>= ceil((n_pos + k - 1) / 4)], ``bad_pos`` int32
+    positions set to 255 (entries outside ``[0, n_pos + k - 1)`` are
+    dropped), ``offsets`` as in :func:`records_wire`.  Returns ``(codes
+    uint8 [n_pos + k - 1], rec_ids int32 [n_pos], valid bool [n_pos])``.
+    The patches are set in the same launch when ``bad_pos`` was uploaded
+    by :func:`upload_patch_list` and found ascending there, as every list
+    :func:`packed_wire_for_batch` builds is; any other list takes a
+    second, patch-only launch.
+    """
+    _check_offsets(offsets, n_pos, k, step)
+    if packed.dtype != torch.uint8 or packed.dim() != 1:
+        raise ValueError("packed must be a 1-D uint8 tensor")
+    if bad_pos.dtype != torch.int32 or bad_pos.dim() != 1:
+        raise ValueError("bad_pos must be a 1-D int32 tensor")
+    if packed.numel() * 4 < n_pos + k - 1:
+        raise ValueError(f"packed holds {packed.numel() * 4} bases, not n_pos + k - 1 = {n_pos + k - 1}")
+    if packed.device.type == "cpu":
+        return restore_records_wire_plain(packed, bad_pos, offsets, n_pos, k=k, step=step)
+    for t in (bad_pos, offsets):
+        if t.device != packed.device:
+            raise ValueError("packed, bad_pos and offsets must share one device")
+    return _records_wire_launch(packed, bad_pos, offsets, n_pos, k, step)
 
 
 records_wire.launches = 0
@@ -1005,17 +1100,6 @@ def reduce_record_counts(counts, mode, threshold=0, seg_ids=None, num_segments=N
 reduce_record_counts.launches = 0
 
 
-def restore_records_wire(packed, bad_pos, offsets, n_pos: int, *, k: int, step: int):
-    """Codes, record ids and validity of a compact records wire
-    (:func:`packed_wire_for_batch`) on its device: K1 on the flat wire,
-    then K4."""
-    codes = unpack_2bit(
-        packed.view(1, -1), torch.zeros_like(bad_pos), bad_pos, n_pos + k - 1
-    ).view(-1)
-    rec_ids, valid = records_wire(offsets, n_pos, k=k, step=step)
-    return codes, rec_ids, valid
-
-
 def make_multi_packed_query(
     geoms,
     step: int,
@@ -1030,12 +1114,13 @@ def make_multi_packed_query(
     JAX package's ``make_multi_packed_query``.
 
     Returns ``fn(tables, packed, bad_pos, offsets, seg_ids=None)`` giving
-    a tuple with one tensor per table: int32 [max_records, C_l] when
-    ``reduce_mode`` is None, else what :func:`reduce_record_counts`
-    gives for that mode.  ``geoms`` are the tables' geometries,
-    ``n_pos`` the batch's position count (``max_records`` is read off
-    ``offsets``).  One call launches K1 and K4 once, K5 once for each
-    probe path among the tables and K6 once.
+    a tuple with one tensor per table: int32
+    [max_records, C_l] when ``reduce_mode`` is None, else what
+    :func:`reduce_record_counts` gives for that mode.  ``geoms`` are the
+    tables' geometries, ``n_pos`` the batch's position count
+    (``max_records`` is read off ``offsets``).  One call on the wire of
+    :func:`upload_records_wire` launches K4 once, K5 once for each probe path among the tables and K6
+    once.
     """
     geoms = list(geoms)
     if reduce_mode is not None and reduce_mode not in REDUCE_MODES:
@@ -1093,8 +1178,7 @@ class DeviceQueryEngine:
         ``(packed, bad_rows, bad_cols)``, rows padded to a whole number
         of ``reads_per_chunk``."""
         n_pad = -(-len(reads) // reads_per_chunk) * reads_per_chunk
-        wire = pack_reads_wire(reads, self.index.k, n_pad)
-        return tuple(torch.from_numpy(a).to(self.device) for a in wire)
+        return wire_to_device(pack_reads_wire(reads, self.index.k, n_pad), self.device)
 
     def count_hits_reads(
         self,

@@ -40,6 +40,7 @@ from xspect2_tpu_torch.ops.query import (
     restore_records_wire,
     unpack_2bit,
     upload_records_wire,
+    wire_to_device,
 )
 from xspect2_tpu_torch.parallel.mesh import CLS_AXIS, DATA_AXIS
 
@@ -220,7 +221,7 @@ class ShardedClassifier:
     def _local_step(self, coords, batch: PreparedBatch, max_records: int) -> torch.Tensor:
         """The device work of the rank at ``coords`` on its data shard's
         batch: int32 [max_records, C_local] hits against its table shard
-        (the compact wire restored by K1 and K4, then K3)."""
+        (the compact wire restored by K4, then K3)."""
         geom = self.shard_geometry(coords[1])
         if batch.num_records == 0:
             return torch.zeros((max_records, geom["num_classes"]), dtype=torch.int32, device=self.device)
@@ -271,7 +272,7 @@ class ShardedClassifier:
         if not len(reads):
             return torch.zeros((n_rows, geom["num_classes"]), dtype=torch.int32, device=self.device)
         wire = pack_reads_wire(np.ascontiguousarray(reads), self.index.k, n_rows)
-        codes = unpack_2bit(*(torch.from_numpy(a).to(self.device) for a in wire), reads.shape[1])
+        codes = unpack_2bit(*wire_to_device(wire, self.device), reads.shape[1])
         hits = reads_query(codes, self.table_shard(coord), step=step, **geom)
         return hits.to(torch.int32)
 
