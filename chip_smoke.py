@@ -25,7 +25,9 @@ width:
   then ``classify_genus`` on assemblies drawn from it and on a FASTQ of
   100,000 reads (K4 and K7, which hashes on the card: one launch per
   record batch); the filter's own count API on sampled contigs (host
-  hashing, the position-based K7);
+  hashing, the position-based K7), which is also timed on the longest
+  contig's k-mers, as many non-members, a filter of 17 probes and random
+  filters of 8-64 MB;
 - sharded: ``xspect2_tpu_torch.parallel`` on the same tables and reads.
   The machine has one card, so every shard of each (data x blk) and
   (data x cls) mesh is evaluated in turn on it (K1-K4, K2 and K3 in
@@ -455,6 +457,41 @@ def check_multi_kernels(rng, errors):
         plain = int(bloom.bloom_count_plain(words, pos, torch.from_numpy(valid).to(dev)))
         errors["bloom_count"] = max(errors["bloom_count"], abs(got - host), abs(got - plain))
         log(f"  bloom_count vs host and plain: {n} k-mers, h=7: kernel {got}, host {host}, plain {plain}")
+    # h = 17 (groups of 8 probes) through the API and on a pos view 4 bytes
+    # past an aligned start; h = 1 and 120 (positions read in place) on
+    # random bits; drawn from a child of rng, so the later phases draw what they drew
+    extra = rng.spawn(1)[0]
+    f17 = compat.XXH3BloomFilter.for_items(len(genome) - K + 1, 2.0 ** -17, K, device=dev)
+    require(f17.num_hashes == 17, "the compat filter at fpr 2^-17 does not take 17 probes")
+    f17.insert_packed(*dna.canonical_kmers(genome, K))
+    probe = np.concatenate([genome[: 100_000 + K], extra.integers(0, 4, size=100_000, dtype=np.uint8)])
+    hi, lo, valid = dna.canonical_kmers(probe, K)
+    mask = torch.from_numpy(valid).to(dev)
+    for f in (filt, f17):
+        host = f.count_hits_host(hi, lo, valid)
+        api = f.count_hits_device(hi, lo, valid)
+        pos = f._positions(hi, lo, valid).astype(np.uint32).view(np.int32)
+        flat = torch.zeros(pos.size + 1, dtype=torch.int32, device=dev)
+        flat[1:] = torch.from_numpy(pos.ravel()).to(dev)
+        view = flat[1:].view(pos.shape)
+        require(view.data_ptr() % 16 == 4, "the offset view does not start 4 bytes past a 16-byte boundary")
+        got = int(bloom.bloom_count(f.device_words(), view, mask))
+        plain = int(bloom.bloom_count_plain(f.device_words(), view, mask))
+        errors["bloom_count"] = max(errors["bloom_count"], abs(api - host), abs(got - host), abs(got - plain))
+        log(f"  bloom_count vs host and plain: {len(hi)} k-mers, h={f.num_hashes}, API and a view at +4 bytes: "
+            f"kernel {api} and {got}, host {host}, plain {plain}")
+    gen = torch.Generator(device=dev).manual_seed(int(extra.integers(1 << 31)))
+    for h in (1, 120):
+        words = torch.randint(-2**31, 2**31 - 1, (1 << 16,), dtype=torch.int32, device=dev, generator=gen)
+        for _ in range(1 if h == 1 else 5):  # bits set w.p. 3/4, or 63/64 so that some k-mers hit
+            words |= torch.randint(-2**31, 2**31 - 1, (1 << 16,), dtype=torch.int32, device=dev, generator=gen)
+        pos = torch.randint(0, (32 << 16) + 4096, (20_001, h), dtype=torch.int32, device=dev, generator=gen)
+        mask = torch.rand(20_001, device=dev, generator=gen) < 0.9
+        got = int(bloom.bloom_count(words, pos, mask))
+        plain = int(bloom.bloom_count_plain(words, pos, mask))
+        errors["bloom_count"] = max(errors["bloom_count"], abs(got - plain))
+        log(f"  bloom_count vs plain: 20,001 k-mers, h={h}, random bits, some positions past the filter: "
+            f"kernel {got}, plain {plain}")
     require(errors["bloom_count"] == 0, "bloom_count disagrees with the host count or its plain version")
 
     for k in (5, 12, 21, 31):
@@ -1606,15 +1643,71 @@ def run_mlst(rng, card, errors):
 # ---------------------------------------------------------------- phase 8
 
 
-def bloom_bound(pos, mask, num_hashes):
+def bloom_bound(words, pos, mask, num_hashes):
     """The position-based K7's bound on these inputs: ``(bytes_ms, ops_ms,
-    sectors)``; the positions and mask read once, each 32 B filter sector
-    a probe touches once, one count written; ~6 operations per probe
-    (estimated)."""
-    sectors = int(torch.unique((pos[mask].long() & 0xFFFFFFFF) >> 8).numel())  # 32 B = 256 filter bits
+    sectors, probes)``; the positions and mask read once, each 32 B filter
+    sector touched by a probe up to and with its k-mer's first clear bit
+    (all probes where none is clear) read once, one count written; ~6
+    operations a probe so evaluated (estimated)."""
+    p = pos[mask].long() & 0xFFFFFFFF
+    inside = (p >> 5) < words.numel()
+    word = (words.long() & 0xFFFFFFFF)[torch.where(inside, p >> 5, 0)]
+    clear = (((word >> (p & 31)) & 1) == 0) | ~inside
+    first = torch.where(clear.any(dim=1), clear.int().argmax(dim=1), num_hashes - 1)
+    need = torch.arange(num_hashes, device=p.device)[None, :] <= first[:, None]
+    sectors = int(torch.unique(p[need & inside] >> 8).numel())  # 32 B = 256 filter bits
+    probes = int(need.sum())
     nbytes = pos.numel() * 4 + mask.numel() + sectors * SECTOR_BYTES + 4
-    ops = int(mask.sum()) * num_hashes * 6
-    return nbytes / HBM_BYTES_PER_S * 1e3, ops / INT_OPS_PER_S * 1e3, sectors
+    return nbytes / HBM_BYTES_PER_S * 1e3, probes * 6 / INT_OPS_PER_S * 1e3, sectors, probes
+
+
+def time_bloom_count(filt, kmers, cold=False):
+    """The position-based K7 on the host-hashed positions of ``kmers``
+    (hi, lo, valid) in ``filt``: its call and device-only time, its plain
+    version's time, its bound, and its count against the plain version and
+    ``count_hits_host`` (``err``); with ``cold``, one call's time after
+    128 MB are written (the L2 holds 50 MB), outside the timed events."""
+    from xspect2_tpu_torch.ops import bloom
+
+    dev = torch.device("cuda")
+    hi, lo, valid = kmers
+    words = filt.device_words()
+    pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(dev)
+    mask = torch.from_numpy(valid).to(dev)
+    got = int(bloom.bloom_count(words, pos, mask))
+    plain = int(bloom.bloom_count_plain(words, pos, mask))
+    host = filt.count_hits_host(hi, lo, valid)
+    out = timed(lambda: bloom.bloom_count(words, pos, mask), 20)
+    out["plain_ms"] = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
+    bytes_ms, ops_ms, sectors, probes = bloom_bound(words, pos, mask, filt.num_hashes)
+    out.update(bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+               bytes_ms=bytes_ms, ops_ms=ops_ms, sectors=sectors, probes=probes, kmers=len(hi),
+               h=filt.num_hashes, hits=got, err=max(abs(got - plain), abs(got - host)))
+    if cold:
+        flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        times = []
+        for i in range(5):
+            flush.fill_(i)
+            start.record()
+            bloom.bloom_count(words, pos, mask)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out["cold_ms"] = float(np.mean(times))
+    return out
+
+
+def set_bit_positions(words, count, gen):
+    """int32 [count] bit positions drawn uniformly among the set bits of
+    ``words``."""
+    bits = words.long() & 0xFFFFFFFF
+    picked, need = [], count
+    while need > 0:
+        draw = torch.randint(0, words.numel() * 32, (2 * need + 64,), device=words.device, generator=gen)
+        picked.append(draw[((bits[draw >> 5] >> (draw & 31)) & 1).bool()][:need])
+        need -= picked[-1].numel()
+    return torch.cat(picked).to(torch.int32)
 
 
 def xxh3_bound(filt, codes, rec, valid, n_pos, max_records):
@@ -1679,7 +1772,7 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
     hashing and one position-based K7 launch a contig), and at every batch
     of the run."""
     from xspect2_tpu_torch import classify
-    from xspect2_tpu_torch.core import dna
+    from xspect2_tpu_torch.core import compat, dna
     from xspect2_tpu_torch.definitions import get_xspect_model_path
     from xspect2_tpu_torch.io.fasta import get_record_iterator
     from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
@@ -1785,32 +1878,62 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
         f"{b['ops_ms']:.4f}), plain {plain_ms:.4f} ms; the old path on the same contigs (host hashing, one "
         f"position-based launch and fetch a contig) {old_s * 1e3:.1f} ms on the host clock")
 
-    # the position-based K7 at the longest contig: time, bound, plain time
+    # the position-based K7 at three shapes of the longest contig's k-mer
+    # count: its own k-mers (members), seeded random DNA (non-members: some
+    # probes stop early), its k-mers in a filter at fpr 2^-17 (h = 17, the
+    # group loop)
     dev = torch.device("cuda")
     _, longest = max(contigs, key=lambda rc: len(rc[1]))
-    hi, lo, valid = dna.canonical_kmers(longest, K)
+    member = dna.canonical_kmers(longest, K)
+    f17 = compat.XXH3BloomFilter.for_items(len(member[0]), 2.0 ** -17, K, device=dev)
+    f17.insert_packed(*member)
+    require(f17.num_hashes == 17, "the compat filter at fpr 2^-17 does not take 17 probes")
+    shapes_k7 = {
+        "member": time_bloom_count(filt, member, cold=True),
+        "non_member": time_bloom_count(
+            filt, dna.canonical_kmers(rng.spawn(1)[0].integers(0, 4, size=len(longest), dtype=np.uint8), K)),
+        "h17": time_bloom_count(f17, member),
+    }
+    for label, t in shapes_k7.items():
+        errors["bloom_count"] = max(errors["bloom_count"], t.pop("err"))
+        cold = f", one cold-L2 call {t['cold_ms']:.4f} ms (128 MB written before each)" if "cold_ms" in t else ""
+        log(f"  timing [{card}] bloom_count {label} ({t['kmers']} k-mers x {t['h']} probes, {t['hits']} hit, "
+            f"{t['probes']} probes up to the first clear bit): {ms_text(t)}{cold}, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}: bytes {t['bytes_ms']:.4f} with each of the {t['sectors']} filter sectors those "
+            f"probes touch read once, operations {t['ops_ms']:.4f}), plain {t['plain_ms']:.4f} ms")
+    require(errors["bloom_count"] == 0, "bloom_count disagrees with the host count or its plain version at a timed shape")
+    # the members' shape in random filters (half the bits set) of growing
+    # size, every probe on a set bit: the rate of random 32 B reads as the
+    # filter outgrows the 50 MB L2
+    n, h = member[0].size, filt.num_hashes
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    sweep = {}
+    for mb in (8, 24, 32, 64):
+        w = torch.randint(-2**31, 2**31 - 1, (mb * 250_000,), dtype=torch.int32, device=dev, generator=gen)
+        p = set_bit_positions(w, n * h, gen).view(n, h)
+        got = int(bloom.bloom_count(w, p, ones))
+        errors["bloom_count"] = max(errors["bloom_count"], abs(got - n), abs(got - int(bloom.bloom_count_plain(w, p, ones))))
+        sweep[mb] = timed(lambda: bloom.bloom_count(w, p, ones), 20)["device_ms"]
+        del w, p
+    require(errors["bloom_count"] == 0, "bloom_count disagrees with its plain version in a random filter")
+    log(f"  timing [{card}] bloom_count members ({n} x {h}) in random filters, device-only: " + "; ".join(
+        f"{mb} MB {t:.4f} ms, {n * h / t / 1e6:.1f} G probes/s" if t else f"{mb} MB not measured"
+        for mb, t in sweep.items()))
     words = filt.device_words()
-    pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(dev)
-    mask = torch.from_numpy(valid).to(dev)
-    k7_got = int(bloom.bloom_count(words, pos, mask))
-    k7_plain = int(bloom.bloom_count_plain(words, pos, mask))
-    errors["bloom_count"] = max(errors["bloom_count"], abs(k7_got - k7_plain),
-                                abs(k7_got - filt.count_hits_host(hi, lo, valid)))
-    require(errors["bloom_count"] == 0, "bloom_count disagrees at the longest contig")
-    k7p = timed(lambda: bloom.bloom_count(words, pos, mask), 20)
-    k7_plain_ms = cuda_ms(lambda: bloom.bloom_count_plain(words, pos, mask), 3)
-    k7_bytes_ms, k7_ops_ms, sectors = bloom_bound(pos, mask, filt.num_hashes)
-    log(f"  timing [{card}] bloom_count ({len(hi)} k-mers x {filt.num_hashes} probes, the longest contig): {ms_text(k7p)}, "
-        f"bound {max(k7_bytes_ms, k7_ops_ms):.4f} ms (bytes {k7_bytes_ms:.4f} with each of the {sectors} filter sectors "
-        f"touched read once, operations {k7_ops_ms:.4f}), plain {k7_plain_ms:.4f} ms")
-    # its launches of the run: one per sampled contig of count_hits_sequence
+    # its launches of the run, one per sampled contig of count_hits_sequence:
+    # exact against the plain version and the host count, time less bound
     api_gap = 0.0
     for picks in sampled:
         for _, c in picks:
             c_hi, c_lo, c_valid = dna.canonical_kmers(c, K)
             p = torch.from_numpy(filt._positions(c_hi, c_lo, c_valid).astype(np.uint32).view(np.int32)).to(dev)
             m = torch.from_numpy(c_valid).to(dev)
-            api_gap += cuda_ms(lambda: bloom.bloom_count(words, p, m), 3) - max(bloom_bound(p, m, filt.num_hashes)[:2])
+            got = int(bloom.bloom_count(words, p, m))
+            errors["bloom_count"] = max(errors["bloom_count"], abs(got - int(bloom.bloom_count_plain(words, p, m))),
+                                        abs(got - filt.count_hits_host(c_hi, c_lo, c_valid)))
+            api_gap += cuda_ms(lambda: bloom.bloom_count(words, p, m), 3) - max(bloom_bound(words, p, m, filt.num_hashes)[:2])
+    require(errors["bloom_count"] == 0, "bloom_count disagrees at a contig of the filter's count API")
 
     # the new K7 at every batch of the run, at its own shape
     run_gap, shapes = 0.0, []
@@ -1832,9 +1955,12 @@ def run_xxh3_genus(genus_genome, assemblies, rng, card, errors):
             run_gap_ms=run_gap, old_path_ms=old_s * 1e3,
         ),
         "bloom_count": dict(
-            k7p, plain_ms=k7_plain_ms, bound_ms=max(k7_bytes_ms, k7_ops_ms),
-            bound_by="bytes" if k7_bytes_ms >= k7_ops_ms else "operations", library_ms=None,
-            run_gap_ms=api_gap,
+            {key: shapes_k7["member"][key] for key in ("ms", "device_ms", "device_by", "plain_ms", "bound_ms",
+                                                        "bound_by", "cold_ms")},
+            library_ms=None, run_gap_ms=api_gap,
+            non_member={key: shapes_k7["non_member"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            h17={key: shapes_k7["h17"][key] for key in ("ms", "device_ms", "plain_ms", "bound_ms")},
+            filter_mb_device_ms=sweep,
         ),
     }
 

@@ -342,31 +342,87 @@ def test_multi_packed_query_launches_each_kernel_once(cuda_device):
         np.testing.assert_array_equal(out.cpu().numpy(), want)
 
 
+def _bloom_tile() -> int:
+    """K7's tile (k-mers a block stages at once), from ``csrc/bloom_count.cu``."""
+    import re
+    from pathlib import Path
+
+    text = (Path(query.__file__).resolve().parent.parent / "csrc" / "bloom_count.cu").read_text(encoding="utf-8")
+    c = {name: int(v) for name, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+    return c["kThreads"] * c["kPerThread"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 777, 100_000])
-def test_bloom_count_kernel_matches_plain_and_host(cuda_device, n):
+@pytest.mark.parametrize("n_case", ["0", "1", "T-1", "T", "T+1", "100000"])
+@pytest.mark.parametrize("fpr,h", [(0.5, 1), (0.01, 7), (2.0**-17, 17)])
+def test_bloom_count_kernel_matches_plain_and_host(cuda_device, n_case, fpr, h):
+    """The position-based K7 through ``count_hits_device`` and on its own, at
+    h = 1, 7 and 17, at n on the tile's edges and n = 0, on members and
+    non-members, and on a ``pos`` view 4 bytes past an aligned start: one
+    launch a call (none at n = 0), the count exact against the plain
+    version and the host."""
     from xspect2_tpu_torch.core import compat
     from xspect2_tpu_torch.ops import bloom
 
-    rng = np.random.default_rng(n)
-    genome = rng.integers(0, 4, size=20_000, dtype=np.uint8)
-    filt = compat.XXH3BloomFilter.for_items(len(genome) - 20, 0.01, 21, device=cuda_device)
-    assert filt.num_hashes == 7
+    t = _bloom_tile()
+    n = {"0": 0, "1": 1, "T-1": t - 1, "T": t, "T+1": t + 1, "100000": 100_000}[n_case]
+    rng = np.random.default_rng(n + h)
+    genome = rng.integers(0, 4, size=max(20_000, n + 20), dtype=np.uint8)
+    filt = compat.XXH3BloomFilter.for_items(len(genome) - 20, fpr, 21, device=cuda_device)
+    assert filt.num_hashes == h
     filt.insert_packed(*dna.canonical_kmers(genome, 21))
-    probe = np.concatenate([genome[: n // 2 + 21], rng.integers(0, 4, size=n, dtype=np.uint8)])[: n + 20]
-    probe[rng.integers(0, len(probe), 3)] = 255
-    hi, lo, valid = dna.canonical_kmers(probe, 21)
+    words = filt.device_words()
+    members = genome[: n + 20]
+    non_members = rng.integers(0, 4, size=n + 20, dtype=np.uint8)
+    for name, probe in (("members", members), ("non-members", non_members)):
+        probe = probe.copy()
+        if n > 3:
+            probe[rng.integers(0, len(probe), 3)] = 255
+        hi, lo, valid = dna.canonical_kmers(probe, 21)
+        assert len(hi) == n
+        launches = 1 if n else 0
+        before = bloom.bloom_count.launches
+        got = filt.count_hits_device(hi, lo, valid)
+        assert bloom.bloom_count.launches == before + launches, name
+        assert got == filt.count_hits_host(hi, lo, valid), name
+        if name == "members" and n:
+            assert got == int(valid.sum()), name
+        pos = filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)
+        flat = torch.zeros(pos.size + 1, dtype=torch.int32, device=cuda_device)
+        flat[1:] = torch.from_numpy(pos.ravel()).to(cuda_device)
+        view = flat[1:].view(pos.shape)
+        assert view.data_ptr() % 16 == 4 or not n
+        mask = torch.from_numpy(valid).to(cuda_device)
+        before = bloom.bloom_count.launches
+        assert int(bloom.bloom_count(words, view, mask)) == got, name
+        assert bloom.bloom_count.launches == before + launches, name
+        assert int(bloom.bloom_count_plain(words, view, mask)) == got, name
+    if n:  # a position past the filter is a miss on both
+        view[0, 0] = -1
+        mask[0] = True
+        assert int(bloom.bloom_count(words, view, mask)) == int(bloom.bloom_count_plain(words, view, mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [9, 120])
+def test_bloom_count_kernel_groups_and_wide_rows(cuda_device, h):
+    """h above the first group's width takes the group loop; above the
+    staged limit the positions are read in place; the valid mask at an odd
+    offset: one launch, the count exact against the plain version."""
+    from xspect2_tpu_torch.ops import bloom
+
+    g = torch.Generator(device=cuda_device).manual_seed(h)
+    words = torch.randint(-2**31, 2**31 - 1, (1 << 12,), dtype=torch.int32, device=cuda_device, generator=g)
+    for _ in range(5):  # bits set w.p. 63/64, so that some k-mers hit all probes
+        words |= torch.randint(-2**31, 2**31 - 1, (1 << 12,), dtype=torch.int32, device=cuda_device, generator=g)
+    n = 3 * _bloom_tile() + 5
+    pos = torch.randint(0, (32 << 12) + 100, (n, h), dtype=torch.int32, device=cuda_device, generator=g)
+    valid = (torch.rand(n + 3, device=cuda_device, generator=g) < 0.9)[3:]
     before = bloom.bloom_count.launches
-    got = filt.count_hits_device(hi, lo, valid)
+    got = int(bloom.bloom_count(words, pos, valid))
     assert bloom.bloom_count.launches == before + 1
-    assert got == filt.count_hits_host(hi, lo, valid)
-    words = torch.from_numpy(filt.words.view(np.int32)).to(cuda_device)
-    pos = torch.from_numpy(filt._positions(hi, lo, valid).astype(np.uint32).view(np.int32)).to(cuda_device)
-    mask = torch.from_numpy(valid).to(cuda_device)
-    assert int(bloom.bloom_count_plain(words, pos, mask)) == got
-    # a position past the filter is a miss on both
-    pos[0, 0] = -1
-    assert int(bloom.bloom_count(words, pos, mask)) == int(bloom.bloom_count_plain(words, pos, mask))
+    want = int(bloom.bloom_count_plain(words, pos, valid))
+    assert got == want and want > 0
 
 
 @pytest.mark.cuda

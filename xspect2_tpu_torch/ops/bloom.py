@@ -242,6 +242,10 @@ def bloom_count(words: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> 
     probe bit positions as int32 [n, h], again uint32 bit patterns (so
     positions up to 2^32 - 1), ``valid`` bool or uint8 [n].  A position
     past the filter is a miss.  The result stays on the device.
+
+    On the card one launch of ``csrc/bloom_count.cu`` counts all k-mers
+    (none for n = 0); ``pos`` may be a view at any 4-byte offset, which
+    the kernel reads in place.
     """
     if words.dtype != torch.int32 or words.dim() != 1 or not words.numel():
         raise ValueError("words must be a non-empty 1-D int32 tensor (uint32 bits)")
@@ -257,6 +261,8 @@ def bloom_count(words: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor) -> 
     words, pos = words.contiguous(), pos.contiguous()
     valid = valid.contiguous().view(torch.uint8)
     out = torch.zeros(1, dtype=torch.int32, device=words.device)
+    if not pos.shape[0]:
+        return out
     fn = _kernels.entry("bloom_count")
     stream = torch.cuda.current_stream(words.device).cuda_stream
     rc = fn(
