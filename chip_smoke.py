@@ -13,10 +13,19 @@ width:
 - reads: simulated FASTQ runs through ``xspect2_tpu_torch.classify``,
   an 8-class species model over 4 Mbp genomes and a 1-class genus model
   over 32 Mbp, 400,000 150 bp reads each (kernels K1 and K2);
-- records: a 40-class x 4 Mbp SVM species model trained through
-  ``ProbabilisticFilterSVMModel.fit``, then ``classify_species`` on 20
-  held-out draft assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4,
-  and ``classify_genus`` on assemblies of the genus genome (K4, K3);
+- records: a 40-class x 4 Mbp SVM species model and the genus model
+  over their 160 Mbp metagenome trained through
+  ``train.train_from_directory(meta=True)`` (the SVM scoring runs K4,
+  K3), ``classify_genus`` with that genus model on assemblies of two
+  class genomes, then ``classify_species`` on 20 held-out draft
+  assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4, and
+  ``classify_genus`` on assemblies of the genus genome (K4, K3);
+- validation: ``classify_species(..., validation=True)`` on a FASTQ of
+  66,050 150 bp reads of three classes, each class's genome seeded as
+  its reference under the misclassification directory: the records
+  route (K4, K3), then the mapping post-filter on the host, which must
+  move exactly the group drawn from one 30 kbp window; every read's hits
+  equal the reads route's (K1, K2);
 - MLST: a 7-locus x 1,000-allele x 450 bp scheme (k=31, fpr 0.001, one
   hash) trained through ``ProbabilisticFilterMlstSchemeModel.fit``, then
   ``classify_mlst`` on a FASTA of 4 Mbp genomes with one known allele
@@ -59,6 +68,7 @@ import shutil
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -85,6 +95,14 @@ MLST_ALLELES = 1000
 ALLELE_LEN = 450
 MLST_GENOMES = 8
 MLST_SHORT = 3
+# validation: a FASTQ of one class's reads, a group of another class's
+# reads from one window, and a group of a third class's reads spread
+# evenly over its genome
+VAL_MAJORITY = 60_000
+VAL_CLUSTERED = 3_000
+VAL_WINDOW = 30_000
+VAL_SPREAD = 3_050
+META_ASSEMBLIES = 2
 # xxh3 genus: assemblies and reads classified through the compat model
 XXH3_ASSEMBLIES = 2
 XXH3_READS = 100_000
@@ -209,6 +227,26 @@ def timed(fn, reps: int) -> dict:
 def ms_text(t: dict) -> str:
     dev = "not measured" if t["device_ms"] is None else f"{t['device_ms']:.4f} ms"
     return f"{t['ms']:.4f} ms a call, {dev} device-only ({t['device_by']})"
+
+
+@contextmanager
+def stopwatch(owner, attr: str, seconds: dict, key: str):
+    """While active, every call of ``owner.attr`` (a function of a module
+    or of a class) adds its host-clock seconds to ``seconds[key]``."""
+    inner = getattr(owner, attr)
+
+    def timed_call(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            seconds[key] = seconds.get(key, 0.0) + time.time() - t0
+
+    setattr(owner, attr, timed_call)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, inner)
 
 
 def pin_one_card() -> str:
@@ -1049,11 +1087,11 @@ def bound_text(b) -> str:
             f"window, {b['no_reuse_ms']:.4f} ms with no reuse between windows")
 
 
-def time_records_kernels(engine, batch, card, errors, rng):
-    """K4 (the records wire restored in one launch) and K3 on one
-    assembly's batch: call and device-only time, bound, plain time; K4's
-    record-id half against ``torch.searchsorted``.  K4 also on the flat
-    wire of 65,536 short records."""
+def time_records_kernels(engine, batch, card, errors, rng, label):
+    """K4 (the records wire restored in one launch) and K3 on one batch
+    of the records route (``label`` names it): exact against their plain
+    versions; call and device-only time, bound, plain time; K4's
+    record-id half against ``torch.searchsorted``."""
     from xspect2_tpu_torch.ops import query
 
     max_records = query._next_pow2(max(8, batch.num_records))
@@ -1066,24 +1104,11 @@ def time_records_kernels(engine, batch, card, errors, rng):
     shortest = int(np.diff(batch.offsets).min())
     got = query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom)
     want = query.records_query_plain(codes, rec, valid, engine.table, **geom)
-    errors["records_query"] = max(errors["records_query"], int((got.long() - want.long()).abs().max()))
-    genome = rng.integers(0, 4, size=1_000_000, dtype=np.uint8)
-    short = []
-    for i in range(65_536):
-        n = int(rng.integers(K + 1, 120))
-        at = int(rng.integers(0, len(genome) - n))
-        c = genome[at : at + n].copy()
-        if i % 9 == 0:
-            c[rng.integers(0, n)] = 255
-        short.append((f"s{i}", c))
-    sb = query.prepare_batch(short, K, step=2, chunk=engine.chunk)
-    s_err, _ = check_restore(query.upload_records_wire(sb, query._next_pow2(sb.num_records), codes.device),
-                             sb.num_positions, K, 2, rng)
-    errors["records_wire"] = max(errors["records_wire"], s_err)
-    log(f"  records_wire vs plain: one 4 Mbp assembly, max |err| {err4}; 65,536 short records "
-        f"({sb.num_positions} positions, step 2), max |err| {s_err}")
-    require(errors["records_wire"] == 0 and errors["records_query"] == 0,
-            "a records kernel disagrees with its plain version at the main path's shape")
+    err3 = int((got.long() - want.long()).abs().max())
+    errors["records_query"] = max(errors["records_query"], err3)
+    del want
+    log(f"  records kernels vs plain ({label}): max |err| K4 {err4}, K3 {err3}")
+    require(err4 == 0 and err3 == 0, f"a records kernel disagrees with its plain version ({label})")
 
     def restore():
         return query.restore_records_wire(packed, bad_pos, offsets, n_pos, k=K, step=step)
@@ -1098,7 +1123,7 @@ def time_records_kernels(engine, batch, card, errors, rng):
     library = timed(lambda: torch.searchsorted(bounds, pos, right=True, out_int32=True), 20)
     k3 = timed(lambda: query.records_query(codes, rec, valid, engine.table, min_record_len=shortest, **geom), 10)
     k3_plain = cuda_ms(lambda: query.records_query_plain(codes, rec, valid, engine.table, **geom), 1)
-    shape = f"{batch.num_records} contigs, {n_pos} positions, step {step}"
+    shape = f"{label}: {batch.num_records} records, {n_pos} positions, step {step}"
 
     k4_bytes = packed.numel() + 4 * bad_pos.numel() + 4 * offsets.numel() + n_tot + 5 * n_pos
     b3 = records_bound(engine.index, codes, rec, valid, n_pos, got.numel() * 4)
@@ -1122,9 +1147,32 @@ def time_records_kernels(engine, batch, card, errors, rng):
         f"(record ids only): {ms_text(library)}")
     log(f"  records_query: {bound_text(b3)}")
     real = int(batch.offsets[-1])
-    log(f"  device-side [{card}]: {real / ((k4['ms'] + k3['ms']) / 1e3) / 1e6:.1f} M bases/s "
+    log(f"  device-side [{card}] ({label}): {real / ((k4['ms'] + k3['ms']) / 1e3) / 1e6:.1f} M bases/s "
         f"({real} bases; wire + query kernels, call times)")
     return out
+
+
+
+def check_short_restore(engine, rng, errors):
+    """K4 on the flat wire of 65,536 short records (22-119 bp, step 2),
+    exact against its plain version."""
+    from xspect2_tpu_torch.ops import query
+
+    genome = rng.integers(0, 4, size=1_000_000, dtype=np.uint8)
+    short = []
+    for i in range(65_536):
+        n = int(rng.integers(K + 1, 120))
+        at = int(rng.integers(0, len(genome) - n))
+        c = genome[at : at + n].copy()
+        if i % 9 == 0:
+            c[rng.integers(0, n)] = 255
+        short.append((f"s{i}", c))
+    sb = query.prepare_batch(short, K, step=2, chunk=engine.chunk)
+    s_err, _ = check_restore(query.upload_records_wire(sb, query._next_pow2(sb.num_records), engine.device),
+                             sb.num_positions, K, 2, rng)
+    errors["records_wire"] = max(errors["records_wire"], s_err)
+    log(f"  records_wire vs plain: 65,536 short records ({sb.num_positions} positions, step 2), max |err| {s_err}")
+    require(s_err == 0, "records_wire disagrees with its plain version on short records")
 
 
 def time_wide_records_query(batch, rng, card, errors):
@@ -1191,8 +1239,72 @@ def time_wide_records_query(batch, rng, card, errors):
     return out
 
 
+def train_records_models(base, names, card):
+    """``train_from_directory(meta=True)`` on the ``cobs/`` + ``svm/`` tree
+    at ``base``: the 40-class SVM species model and the genus model over
+    the metagenome of all classes.  Returns the kernel launches and the
+    seconds of the call."""
+    from xspect2_tpu_torch import train
+    from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
+    from xspect2_tpu_torch.models.svm_model import ProbabilisticFilterSVMModel
+
+    seconds: dict = {}
+    reset_launches()
+    t0 = time.time()
+    with stopwatch(train, "concatenate_species_fasta_files", seconds, "species concatenation"), \
+            stopwatch(ProbabilisticFilterSVMModel, "fit", seconds, "species fit (index + SVM scores)"), \
+            stopwatch(train, "concatenate_metagenome", seconds, "metagenome concatenation"), \
+            stopwatch(ProbabilisticSingleFilterModel, "fit", seconds, "genus fit"):
+        train.train_from_directory("SmokeAsm", base, meta=True,
+                                   translation_dict={n: f"SmokeAsm {n}" for n in names}, device="cuda")
+    total = time.time() - t0
+    launches = read_launches()
+    log(f"  train_from_directory [{card}]: {total:.2f} s; " + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+        + f", the rest (staging, saves) {total - sum(seconds.values()):.2f}; launches {launches}")
+    require(launches["records_wire"] == launches["records_query"] > 0 and launches["unpack_2bit"] == 0,
+            "the SVM scoring of fit did not launch K4 once per batch (one K3 each), or K1")
+    return launches, total
+
+
+def check_metagenome_genus(genomes, names, rng, card):
+    """classify_genus with the genus model that ``meta=True`` trained, on
+    assemblies of two class genomes (contigs of the metagenome): every
+    N-free window hits, sampled contigs equal the host reference."""
+    from xspect2_tpu_torch import classify
+    from xspect2_tpu_torch.model_management import get_genus_model_path
+    from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
+
+    genus = ProbabilisticSingleFilterModel.load(get_genus_model_path("SmokeAsm"), device="cuda")
+    idx = genus.index
+    log(f"  genus model over the metagenome: C={idx.num_classes} h={idx.num_hashes} P={idx.fields_per_word}, "
+        f"{idx.num_blocks} blocks, {idx.nbytes / 1e6:.1f} MB, class {idx.class_names}")
+    in_dir = WORK / "metagenome_assemblies"
+    in_dir.mkdir()
+    assemblies = []
+    for a, ci in enumerate(rng.choice(len(names), META_ASSEMBLIES, replace=False)):
+        contigs = simulate_assembly(genomes[ci], rng, f"m{a}", int(rng.integers(20, 401)), subst=0)
+        write_fasta(in_dir / f"masm{a}.fasta", contigs)
+        assemblies.append(contigs)
+    out = WORK / "metagenome_asm" / "res.json"
+    reset_launches()
+    t0 = time.time()
+    classify.classify_genus("SmokeAsm", in_dir, out, device="cuda")
+    e2e = time.time() - t0
+    launches = read_launches()
+    require(launches["records_wire"] == launches["records_query"] > 0 and launches["unpack_2bit"] == 0,
+            "metagenome assemblies: K4 was not launched once per batch (one K3 each), or K1 was launched")
+    checked = 0
+    for a, contigs in enumerate(assemblies):
+        res = json.loads((out.parent / f"res_{a + 1}.json").read_text(encoding="utf-8"))
+        checked += check_assembly_result(res, contigs, idx, 1, rng, f"masm{a}", exact_hits=True)
+    log(f"  end-to-end [{card}] metagenome genus assemblies: {META_ASSEMBLIES} in {e2e:.2f} s; every N-free window "
+        f"of every contig hit, {checked} sampled contigs equal the host reference; launches {launches}")
+    return launches
+
+
 def run_records(rng, card, errors):
-    """Train the 40-class SVM species model, classify held-out assemblies."""
+    """Train the 40-class SVM species model and the metagenome genus model
+    through ``train_from_directory``, classify held-out assemblies."""
     from xspect2_tpu_torch import classify
     from xspect2_tpu_torch.definitions import get_xspect_model_path
     from xspect2_tpu_torch.model_management import metadata_path
@@ -1202,10 +1314,12 @@ def run_records(rng, card, errors):
     base = WORK / "records"
     names = [f"{100 + i}" for i in range(ASM_CLASSES)]
     genomes = rng.integers(0, 4, size=(ASM_CLASSES, GENOME_LEN), dtype=np.uint8)
+    # draws the phase adds come from a child generator, so later phases draw what they drew
+    child = rng.spawn(1)[0]
     t0 = time.time()
-    (base / "cobs").mkdir(parents=True)
     for name, g in zip(names, genomes):
-        write_fasta(base / "cobs" / f"{name}.fasta", [(f"{name}_genome", g)])
+        (base / "cobs" / name).mkdir(parents=True)
+        write_fasta(base / "cobs" / name / f"{name}.fasta", [(f"{name}_genome", g)])
         (base / "svm" / name).mkdir(parents=True)
         for j in range(2):
             s = int(rng.integers(0, GENOME_LEN - SVM_LEN))
@@ -1214,20 +1328,12 @@ def run_records(rng, card, errors):
             write_fasta(base / "svm" / name / f"GCF_{name}{j}.fasta", contigs)
     log(f"  wrote {ASM_CLASSES} class genomes and {2 * ASM_CLASSES} SVM assemblies in {time.time() - t0:.1f} s")
 
-    model = ProbabilisticFilterSVMModel(
-        K, "SmokeAsm", None, None, "Species", get_xspect_model_path(), kernel="rbf", c=1.0,
-        device="cuda",
-    )
-    reset_launches()
-    t0 = time.time()
-    model.fit(base / "cobs", base / "svm", display_names={n: f"SmokeAsm {n}" for n in names})
-    model.save()
-    fit_s = time.time() - t0
-    fit_launches = read_launches()
+    fit_launches, fit_s = train_records_models(base, names, card)
+    model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     idx = model.index
     log(f"  fit [{card}]: C={idx.num_classes} h={idx.num_hashes} P={idx.fields_per_word} "
         f"cw={idx.class_words}, {idx.num_blocks} blocks, {idx.nbytes / 1e6:.1f} MB, "
-        f"{2 * ASM_CLASSES} SVM assemblies scored, {fit_s:.2f} s; launches {fit_launches}")
+        f"{2 * ASM_CLASSES} SVM assemblies scored, {fit_s:.2f} s with the genus model")
     require((idx.num_hashes, idx.fields_per_word, idx.class_words) == (7, 1, 2),
             "the 40-class geometry is not h=7, P=1, cw=2")
     scores = (get_xspect_model_path() / model.slug() / "scores.csv").read_text(encoding="utf-8").splitlines()
@@ -1244,11 +1350,13 @@ def run_records(rng, card, errors):
         contigs = simulate_assembly(genomes[ci], rng, f"a{a:02d}", int(rng.integers(20, 401)))
         total_bases += write_fasta(in_dir / f"asm{a:02d}.fasta", contigs)
         assemblies.append((names[ci], contigs))
+    launches = {name: 0 for name in KERNELS}
+    add_launches(launches, fit_launches)
+    add_launches(launches, check_metagenome_genus(genomes, names, child, card))
+    # validation: the first three classes, held for phase 6d
+    val_genomes = {names[i]: genomes[i].copy() for i in range(3)}
     del genomes
 
-    launches = {name: 0 for name in KERNELS}
-    for name, v in fit_launches.items():
-        launches[name] += v
     for step in (1, 4):
         out = base / f"species_step{step}" / "res.json"
         reset_launches()
@@ -1276,11 +1384,13 @@ def run_records(rng, card, errors):
 
     model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     batch = query.prepare_batch(assemblies[0][1], K, step=1, chunk=model.engine.chunk)
-    timings = time_records_kernels(model.engine, batch, card, errors, rng)
+    timings = time_records_kernels(model.engine, batch, card, errors, rng, "one 4 Mbp assembly")
+    check_short_restore(model.engine, rng, errors)
     timings["records_query"]["classes_512"] = time_wide_records_query(batch, rng, card, errors)
     label, contigs = assemblies[0]
     single = json.loads((base / "species_step1" / "res_1.json").read_text(encoding="utf-8"))
-    return launches, timings, dict(model=model, reads=asm_reads, contigs=contigs, label=label, single=single)
+    return launches, timings, dict(model=model, reads=asm_reads, contigs=contigs, label=label, single=single,
+                                   val_genomes=val_genomes, child=child)
 
 
 def run_genus_assemblies(genus_genome, genus_idx, rng, card):
@@ -1312,6 +1422,133 @@ def run_genus_assemblies(genus_genome, genus_idx, rng, card):
         f"in {e2e:.2f} s, {GENUS_ASSEMBLIES / e2e:.2f} assemblies/s, {total_bases / e2e / 1e6:.2f} M bases/s; "
         f"every N-free window of every contig hit, sampled contigs equal the host reference")
     return launches, assemblies
+
+
+# ---------------------------------------------------------------- phase 6d
+
+
+def validation_reads(genomes, rng):
+    """The validation FASTQ's reads and their groups: VAL_MAJORITY reads
+    drawn uniformly from the first class, VAL_CLUSTERED from one
+    VAL_WINDOW bp window of the second, VAL_SPREAD from the third spread
+    evenly (one read a stratum, jittered within its first quarter), half
+    reverse-complemented, shuffled.  Uniform draws would sit at Ripley's
+    K = 2r boundary and flip with the seed; the strata keep the third
+    group below it."""
+    stack = np.stack(list(genomes.values()))
+    span = GENOME_LEN - READ_LEN
+    window = int(rng.integers(0, GENOME_LEN - VAL_WINDOW))
+    stratum = span / VAL_SPREAD
+    pos = np.concatenate([
+        rng.integers(0, span, VAL_MAJORITY),
+        window + rng.integers(0, VAL_WINDOW - READ_LEN, VAL_CLUSTERED),
+        (np.arange(VAL_SPREAD) * stratum).astype(np.int64) + rng.integers(0, int(stratum / 4), VAL_SPREAD),
+    ])
+    group = np.repeat([0, 1, 2], [VAL_MAJORITY, VAL_CLUSTERED, VAL_SPREAD])
+    order = rng.permutation(len(pos))
+    pos, group = pos[order], group[order]
+    reads = stack[group[:, None], pos[:, None] + np.arange(READ_LEN)[None, :]].astype(np.uint8)
+    rc = rng.random(len(reads)) < 0.5
+    reads[rc] = 3 - reads[rc, ::-1]
+    return reads, group
+
+
+def run_validation(asm, card, errors):
+    """``classify_species(..., validation=True)`` on the 40-class SVM model
+    (the records route, K4 + K3, then the mapping post-filter on the
+    host) against each class's genome seeded as its reference: the
+    clustered group moves under ``misclassified``, the others stay; every
+    read's hits equal the reads route's (``validation=False``: K1 + K2)
+    and, on a sample, the host reference.  Then K4 and K3 at the first
+    batch of the validated reads."""
+    import xspect2_tpu_torch.misclassification_detection as mc
+    from xspect2_tpu_torch import classify
+    from xspect2_tpu_torch.core import dna
+    from xspect2_tpu_torch.definitions import get_xspect_misclassification_path
+    from xspect2_tpu_torch.io.fasta import get_record_iterator
+    from xspect2_tpu_torch.models.result import ModelResult
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.ops.query import DeviceQueryEngine, prepare_batch
+
+    rng, genomes, model = asm["child"], asm["val_genomes"], asm["model"]
+    idx = model.index
+    names = list(genomes)
+    reads, group = validation_reads(genomes, rng)
+    n = len(reads)
+    fastq = WORK / "validation.fastq"
+    write_fastq(fastq, reads)
+    ids = np.array([f"r{i:07d}" for i in range(n)])
+    for name, g in genomes.items():
+        tax_dir = get_xspect_misclassification_path() / name
+        tax_dir.mkdir(parents=True)
+        write_fasta(tax_dir / f"{name}.fna", [(f"{name}_genome", g)])
+    # a reference that is missing would be fetched from NCBI: a closed local port keeps it on the machine
+    os.environ["XSPECT_NCBI_URL"] = "http://127.0.0.1:1"
+
+    seconds: dict = {}
+    out = WORK / "validation" / "res.json"
+    reset_launches()
+    t0 = time.time()
+    with stopwatch(DeviceQueryEngine, "count_hits", seconds, "count (pack, copy, kernels, fetch)"), \
+            stopwatch(mc, "detect_misclassification", seconds, "mapping (group, map, Ripley's K)"), \
+            stopwatch(ModelResult, "save", seconds, "result JSON"):
+        classify.classify_species("SmokeAsm", fastq, out, validation=True, device="cuda")
+    e2e = time.time() - t0
+    launches = read_launches()
+    log(f"  validation: kernel launches {launches}")
+    require(launches["records_wire"] == launches["records_query"] > 0 and launches["unpack_2bit"] == 0
+            and launches["reads_query"] == 0, "validation did not take the records route (K4 + K3 a batch)")
+    log(f"  end-to-end [{card}] validation: {n} reads in {e2e:.2f} s, {n / e2e:.0f} validated reads/s; "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in seconds.items())
+        + f", the rest (parse, prepare_batch, hit dicts, SVM) {e2e - sum(seconds.values()):.3f} s")
+    res = json.loads(out.read_text(encoding="utf-8"))
+    flagged = res["misclassified"] or {}
+    require(sorted(flagged) == [names[1]] and set(flagged[names[1]]) == set(ids[group == 1]),
+            f"validation flagged {sorted(flagged)} ({[len(v) for v in flagged.values()]} reads), "
+            f"not exactly the clustered group of {names[1]}")
+    require(set(res["hits"]) == set(ids[group != 1]), "validation did not keep exactly the other groups")
+    require(res["prediction"] == names[0], f"validation predicted {res['prediction']}, not {names[0]}")
+    log(f"  validation: the {VAL_CLUSTERED} clustered reads of {names[1]} moved under misclassified; the "
+        f"{VAL_SPREAD} spread reads of {names[2]} and {VAL_MAJORITY} of {names[0]} stayed; prediction {names[0]}")
+
+    reset_launches()
+    t0 = time.time()
+    classify.classify_species("SmokeAsm", fastq, WORK / "validation" / "plain.json", device="cuda")
+    plain_s = time.time() - t0
+    plain_launches = read_launches()
+    require(plain_launches["unpack_2bit"] == plain_launches["reads_query"] > 0
+            and plain_launches["records_query"] == 0, "validation=False did not take the reads route")
+    plain = json.loads((WORK / "validation" / "plain.json").read_text(encoding="utf-8"))
+    kept = {**res["hits"], **flagged[names[1]]}
+    require(kept == plain["hits"], "a validated read's hits differ from the reads route's")
+    sample = np.sort(rng.choice(n, SAMPLE, replace=False))
+    want = host_counts(idx, reads[sample])
+    got = np.array([[kept[ids[i]][c] for c in idx.class_names] for i in sample])
+    require(np.array_equal(got, want), "validated counts differ from the host reference")
+    log(f"  validation: every read's hits equal the reads route's ({n / plain_s:.0f} reads/s, launches "
+        f"{plain_launches}); {SAMPLE} sampled reads equal the host reference")
+
+    records = get_record_iterator(fastq)
+    batch = prepare_batch([(r.id, dna.encode(r.seq)) for r in next(iter(model._iter_record_batches(records)))],
+                          K, step=1, chunk=model.engine.chunk)
+    timings = time_records_kernels(model.engine, batch, card, errors, rng, "first batch of the validated reads")
+    # K4 finds each thread's records by walking the offsets one at a time,
+    # so the thread that reaches the end of the real bases walks every empty
+    # record up to max_records; the same batch with no empty records
+    n_pos, n_real = batch.num_positions, int(batch.offsets[-1])
+    walk, ids = {}, []
+    for max_records in (query._next_pow2(max(8, batch.num_records)), batch.num_records):
+        offsets = model.engine.upload_records_wire(batch, max_records)[2]
+        rec, valid = query.records_wire(offsets, n_pos, k=K, step=1)
+        ids.append((rec[:n_real], valid))
+        walk[max_records] = timed(lambda: query.records_wire(offsets, n_pos, k=K, step=1), 20)
+    require(all(torch.equal(a, b) for a, b in zip(*ids)), "K4 record ids depend on the empty records")
+    log(f"  timing [{card}] records_wire without codes, first validation batch, by max_records (empty records "
+        f"after the {batch.num_records} real ones): "
+        + "; ".join(f"{m} ({m - batch.num_records} empty): {ms_text(t)}" for m, t in walk.items()))
+    timings["records_wire"]["ids_only_by_max_records"] = {str(m): t for m, t in walk.items()}
+    launches = {name: launches[name] + plain_launches[name] for name in KERNELS}
+    return launches, timings, dict(e2e_s=e2e, reads_per_s=n / e2e, **seconds)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2461,12 +2698,16 @@ def main() -> int:
     check_svm(species_idx, genomes, rng)
     del genomes, species_idx
 
-    log("phase 6: records, 40-class x 4 Mbp SVM species model: fit, then 20 assemblies at steps 1 and 4")
+    log("phase 6: records, 40-class x 4 Mbp SVM species model and the 160 Mbp metagenome genus model through "
+        "train_from_directory, then 20 assemblies at steps 1 and 4")
     rec_launches, rec_timings, asm = run_records(rng, card, errors)
     log("phase 6b: the 40-class table on (data x cls) and (data x blk) meshes, every shard in turn on this card")
     k3_sharded, head_timing = run_sharded_records(asm, card, errors)
     log("phase 6c: both sharded classifiers through their public methods, NCCL at world size 1")
     nccl_launches, k2_nccl = run_nccl_world_of_one(asm, card)
+    log(f"phase 6d: validation, {VAL_MAJORITY + VAL_CLUSTERED + VAL_SPREAD} reads through classify_species("
+        f"validation=True) on the 40-class model, each class's genome seeded as its reference")
+    val_launches, val_timings, val_e2e = run_validation(asm, card, errors)
     del asm
 
     log(f"phase 7: MLST, {MLST_LOCI} loci x {MLST_ALLELES} alleles x {ALLELE_LEN} bp, {MLST_GENOMES} genomes of "
@@ -2496,8 +2737,10 @@ def main() -> int:
         f"{x_timings['xxh3_records_count']['run_gap_ms']:.4f} ms over {x_launches['xxh3_records_count']}, bloom_count "
         f"{x_timings['bloom_count']['run_gap_ms']:.4f} ms over {x_launches['bloom_count']} (time less bound, summed)")
     all_timings["records_query"]["block_sharded"] = k3_sharded
-    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, mlst_launches,
-                    x_launches, p_launches)
+    for name in ("records_wire", "records_query"):
+        all_timings[name]["validation"] = val_timings[name]
+    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
+                    mlst_launches, x_launches, p_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -2508,15 +2751,17 @@ def main() -> int:
     from xspect2_tpu_torch.models.svm_head import SVMHead
 
     log(f"svm head [{card}]: {json.dumps(dict(head_timing, calls=SVMHead.calls))} (calls: every prediction of the run)")
+    log(f"validation [{card}]: {json.dumps(val_e2e)}")
     log(
         f"kernels [{card}]: launches summed over every main-path run (species and genus reads, "
-        f"genus assemblies, the 40-class fit and both assembly runs, the sharded classifiers' public "
-        f"methods at NCCL world size 1, classify_mlst and the three MLST predict runs, the xxh3 genus "
+        f"genus assemblies, the 40-class fit with the metagenome genus assemblies and both assembly runs, "
+        f"the sharded classifiers' public methods at NCCL world size 1, the validated and the plain run "
+        f"of the validation reads, classify_mlst and the three MLST predict runs, the xxh3 genus "
         f"assemblies and reads with the filter's count API, the microbenchmark); unpack_2bit and reads_query "
         f"timed at the species reads shape, "
         f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
         f"at the same shapes; classes_512: a 512-class table, also on short records and the global-atomic "
-        f"path), multi_records_query and reduce_record_counts at one group of 4 genomes, "
+        f"path; validation: the first batch of the validated reads), multi_records_query and reduce_record_counts at one group of 4 genomes, "
         f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
         f"chunk of 8,192 reads; "
         f"whole run {time.time() - t_start:.1f} s"

@@ -175,7 +175,7 @@ def _fit_both(tmp_path, genome):
     return jax_model, model
 
 
-def test_xxh3_genus_model_files_and_results_match_jax(tmp_path):
+def test_xxh3_genus_model_files_and_results_match_jax(tmp_path, data_root):
     rng = np.random.default_rng(11)
     genome = random_dna(rng, 8000)
     jax_model, model = _fit_both(tmp_path, genome)
@@ -203,8 +203,9 @@ def test_xxh3_genus_model_files_and_results_match_jax(tmp_path):
         want = jax_loaded.predict([JaxSeqRecord(s, id=i) for i, s in seqs.items()], **kwargs)
         assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
     assert loaded.predict(SeqRecord(sub, id="inside")).get_scores()["inside"]["metagenome"] == 1.0
-    with pytest.raises(NotImplementedError, match="validation slice"):
-        loaded.predict(SeqRecord(sub, id="inside"), validation=True)
+    got = loaded.predict([SeqRecord(s, id=i) for i, s in seqs.items()], validation=True)
+    want = jax_loaded.predict([JaxSeqRecord(s, id=i) for i, s in seqs.items()], validation=True)
+    assert json.dumps(got.to_dict()) == json.dumps(want.to_dict()) and got.misclassified is None
     with pytest.raises(ValueError, match="No sequences"):
         loaded.predict([])
     (tmp_path / "port" / slug / "filter.xxh3.npz").unlink()

@@ -45,15 +45,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "models.mlst_model", "core.compat", "core.xxh3", "handlers.http", "handlers.pubmlst",
         "filter_sequences", "ops.bloom", "ops.probe_select", "parallel", "parallel.mesh",
         "parallel.distributed", "parallel.sharded", "parallel.block_sharded",
-        "tools.microbench_probe",
+        "tools.microbench_probe", "train", "handlers.ncbi", "misclassification_detection",
+        "misclassification_detection.mapping", "misclassification_detection.point_pattern_analysis",
+        "misclassification_detection.simulate_reads", "reference_import", "download_models",
     ):
         assert f"xspect2_tpu_torch.{module}" in MODULES
 
 
 def test_the_model_modules_do_not_import_requests():
     """``requests`` is needed by the handlers only, which the MLST model
-    imports inside its ST-name lookup: a machine without ``requests``
-    imports and runs every model."""
+    imports inside its ST-name lookup, training, the reference import and
+    the misclassification detection inside their functions, and the
+    bundle download inside its own: a machine without ``requests``
+    imports every module and runs every model."""
     models = [m for m in MODULES if ".handlers" not in m]
     code = (
         "import importlib, json, sys\n"
@@ -66,7 +70,9 @@ def test_the_model_modules_do_not_import_requests():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
-    assert "xspect2_tpu_torch.models.mlst_model" in models
+    for module in ("models.mlst_model", "train", "reference_import", "download_models",
+                   "misclassification_detection", "misclassification_detection.mapping"):
+        assert f"xspect2_tpu_torch.{module}" in models
 
 
 def test_port_sources_name_no_jax_import():
@@ -79,14 +85,32 @@ def test_port_sources_name_no_jax_import():
     assert {
         "mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py", "mesh.py",
         "distributed.py", "sharded.py", "block_sharded.py", "probe_select.py", "microbench_probe.py",
+        "train.py", "ncbi.py", "mapping.py", "point_pattern_analysis.py", "simulate_reads.py",
+        "reference_import.py", "download_models.py",
     } <= {p.name for p in sources}
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp_path):
+    from xspect2_tpu_torch import download_models, reference_import, train
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("XSPECT_NCBI_URL", "http://127.0.0.1:1")  # nothing may leave the machine
+    monkeypatch.setenv("XSPECT_PUBMLST_URL", "http://127.0.0.1:1")
     model_cache.clear()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         classify.classify_species("Anything", tmp_path / "in.fq", tmp_path / "out.json")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        classify.classify_species("Anything", tmp_path / "in.fq", tmp_path / "out.json", validation=True)
+    for entry in (
+        lambda: train.train_from_directory("Anything", tmp_path),
+        lambda: train.train_from_ncbi("Anything"),
+        lambda: train.train_mlst("org", "scheme"),
+        lambda: reference_import.import_reference_models(tmp_path),
+        lambda: download_models.download_test_models(url="http://127.0.0.1:1/m.zip"),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    assert not list(data_root.glob("models/*.json"))
     with pytest.raises(RuntimeError):
         classify.classify_genus("Anything", tmp_path / "in.fq", tmp_path / "out.json")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -151,18 +175,19 @@ def _small_model(tmp_path):
     return model
 
 
-def test_ragged_input_and_unported_options_raise(tmp_path):
-    """Ragged input classifies (the records route); validation is still
-    unported and raises; the xxh3 genus filter is ported, an unknown hash
-    family raises."""
+def test_ragged_input_and_unported_options_raise(tmp_path, data_root):
+    """Ragged input classifies (the records route); validation is ported:
+    where no group is flagged its result is the one without validation;
+    the xxh3 genus filter is ported, an unknown hash family raises."""
     model = _small_model(tmp_path)
     ragged = tmp_path / "ragged.fasta"
     ragged.write_text(">r1\n" + "A" * 100 + "\n>r2\n" + "C" * 120 + "\n", encoding="utf-8")
     assert model.predict(ragged).num_kmers == {"r1": 80, "r2": 100}
     even = tmp_path / "even.fasta"
     even.write_text(">r1\n" + "A" * 100 + "\n>r2\n" + "C" * 100 + "\n", encoding="utf-8")
-    with pytest.raises(NotImplementedError, match="validation slice"):
-        model.predict(even, validation=True)
+    validated = model.predict(even, validation=True)
+    assert validated.misclassified is None
+    assert json.dumps(validated.to_dict()) == json.dumps(model.predict(even).to_dict())
     assert set(model.predict(even).hits) == {"r1", "r2"}
     genus = ProbabilisticSingleFilterModel(
         21, "G", None, None, "Genus", tmp_path, hash_family="xxh3", device="cpu")

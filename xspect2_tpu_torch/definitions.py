@@ -1,8 +1,9 @@
 """Constants and data-directory layout.
 
 Same layout as the JAX package: everything lives under
-``~/xspect-data`` (or ``./xspect-data`` if that already exists), models
-under ``models/``.  ``XSPECT_DATA_ROOT`` overrides the root, so both
+``~/xspect-data`` (or ``./xspect-data`` if that already exists), with
+subdirectories ``models/``, ``uploads/``, ``runs/``, ``mlst/`` and
+``misclassification/``.  ``XSPECT_DATA_ROOT`` overrides the root, so both
 packages read one model registry.
 """
 
@@ -41,8 +42,32 @@ def get_xspect_root_path() -> Path:
     return home_based_dir
 
 
-def get_xspect_model_path() -> Path:
-    """Return the path to the XspecT models directory."""
-    path = get_xspect_root_path() / "models"
+def _subdir(name: str) -> Path:
+    path = get_xspect_root_path() / name
     path.mkdir(exist_ok=True, parents=True)
     return path
+
+
+def get_xspect_model_path() -> Path:
+    """Return the path to the XspecT models directory."""
+    return _subdir("models")
+
+
+def get_xspect_upload_path() -> Path:
+    """Return the path to the uploads directory."""
+    return _subdir("uploads")
+
+
+def get_xspect_runs_path() -> Path:
+    """Return the path to the runs directory."""
+    return _subdir("runs")
+
+
+def get_xspect_mlst_path() -> Path:
+    """Return the path to the MLST directory."""
+    return _subdir("mlst")
+
+
+def get_xspect_misclassification_path() -> Path:
+    """Return the path to the misclassification working directory."""
+    return _subdir("misclassification")

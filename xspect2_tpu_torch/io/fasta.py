@@ -10,6 +10,15 @@ from typing import Iterator
 
 from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings
 
+_COMPLEMENT = str.maketrans(
+    "ACGTUacgtuRYKMBVDHrykmbvdhNnSWsw-", "TGCAAtgcaaYRMKVBHDyrmkvbhdNnSWsw-"
+)
+
+
+def reverse_complement(seq: str) -> str:
+    """Reverse complement of a DNA string (IUPAC codes complemented)."""
+    return seq.translate(_COMPLEMENT)[::-1]
+
 
 class SeqRecord:
     """Minimal sequence record: id, description, sequence string."""
@@ -23,6 +32,9 @@ class SeqRecord:
 
     def __len__(self) -> int:
         return len(self.seq)
+
+    def reverse_complement(self) -> "SeqRecord":
+        return SeqRecord(reverse_complement(self.seq), self.id, self.description)
 
     def __repr__(self) -> str:
         return f"SeqRecord(id={self.id!r}, len={len(self.seq)})"
@@ -89,7 +101,6 @@ def get_record_iterator(file_path: Path) -> Iterator[SeqRecord]:
     if file_path.suffix[1:] in fastq_endings:
         return parse_fastq(file_path)
     raise ValueError("Invalid file format, must be a fasta or fastq file")
-
 
 
 def write_fasta(records, path: Path, line_width: int = 60) -> None:

@@ -8,8 +8,9 @@ hit counts from :class:`~xspect2_tpu_torch.ops.query.DeviceQueryEngine`.
 ``predict`` on a file takes one of two routes, as the JAX package does:
 a file of at least 512 records of one length (a FASTQ run) goes through
 the uniform-reads route; every other input (assemblies, small files,
-record lists) through the records route.  The validation post-filter
-is not ported and raises ``NotImplementedError``.
+record lists) through the records route.  ``validation=True`` always
+takes the records route and keeps every record it counted for the
+alignment post-filter (:meth:`detecting_misclassification`).
 """
 
 import json
@@ -26,12 +27,6 @@ from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings, slugify
 from xspect2_tpu_torch.io.fasta import SeqRecord, get_record_iterator
 from xspect2_tpu_torch.models.result import ModelResult
 from xspect2_tpu_torch.ops.query import DeviceQueryEngine, prepare_batch
-
-VALIDATION_SLICE = (
-    "validation=True (the alignment post-filter against NCBI reference "
-    "genomes) belongs to the validation slice of the PyTorch port and is "
-    "not ported yet; use xspect2_tpu"
-)
 
 # a file of at least this many records of one length takes the reads
 # route; anything else takes the records route (the JAX package's rule)
@@ -279,17 +274,19 @@ class ProbabilisticFilterModel:
     ) -> ModelResult:
         """Classify a file, a ``SeqRecord``, a record list or an iterator.
 
-        Results equal the JAX package's on the same model and input.
+        With ``validation``, records whose group maps in a spatial
+        cluster onto its class's reference genome move under
+        ``misclassified``.  Results equal the JAX package's on the same
+        model and input.
         """
-        if validation:
-            raise NotImplementedError(VALIDATION_SLICE)
-        if isinstance(sequence_input, Path):
+        if isinstance(sequence_input, Path) and not validation:
             fast = self._predict_reads_file(sequence_input, exclude_ids, step, display_name)
             if fast is not None:
                 return fast
 
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
+        kept_records: list[SeqRecord] = []
         for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
             batch = prepare_batch(
                 [(rec.id, dna.encode(rec.seq)) for rec in rec_batch],
@@ -301,8 +298,12 @@ class ProbabilisticFilterModel:
             for i, rec in enumerate(rec_batch):
                 hits[rec.id] = self._record_hits(counts[i], exclude_ids, display_name)
                 num_kmers[rec.id] = batch.num_kmers[i]
+            if validation:
+                kept_records.extend(rec_batch)
         if not hits:
             raise ValueError("No sequences found in input")
+        if validation:
+            hits = self.detecting_misclassification(hits, kept_records)
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
 
     def _as_record_iterable(self, sequence_input) -> Iterable[SeqRecord]:
@@ -366,3 +367,21 @@ class ProbabilisticFilterModel:
             raise FileNotFoundError(f"Index file not found at {index_path}")
         model.index = BlockedBitSlicedIndex.load(index_path)
         return model
+
+    # ------------------------------------------------------------------ validation post-filter
+
+    def detecting_misclassification(
+        self,
+        hits: dict[str, dict[str, int]],
+        seq_records: list[SeqRecord],
+        min_reads: int = 10,
+    ) -> dict[str, dict[str, int]]:
+        """Alignment-based misclassification post-filter.
+
+        Groups reads by unique-argmax class, maps suspect groups onto the
+        class's reference genome and removes spatially clustered groups
+        (:mod:`xspect2_tpu_torch.misclassification_detection`, on the host).
+        """
+        from xspect2_tpu_torch.misclassification_detection import detect_misclassification
+
+        return detect_misclassification(hits, seq_records, min_reads=min_reads)

@@ -21,7 +21,7 @@ from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.io.fasta import get_record_iterator
-from xspect2_tpu_torch.models.filter_model import VALIDATION_SLICE, ProbabilisticFilterModel
+from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
 from xspect2_tpu_torch.models.result import ModelResult
 from xspect2_tpu_torch.ops.query import prepare_batch
 
@@ -139,12 +139,11 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
     ) -> ModelResult:
         if self.compat_filter is None:
             return super().predict(sequence_input, exclude_ids, step, display_name, validation)
-        if validation:
-            raise NotImplementedError(VALIDATION_SLICE)
         name = self._compat_class_name()
         excluded = bool(exclude_ids) and name in exclude_ids
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
+        kept_records = []
         for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
             # a record of at most k bases raises here, as calculate_hits does
             counts, kmers = self._compat_counts(
@@ -154,8 +153,12 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
                 rec_hits = {} if excluded else {name: count}
                 hits[rec.id] = self._with_display_names(rec_hits) if display_name else rec_hits
                 num_kmers[rec.id] = nk
+            if validation:
+                kept_records.extend(rec_batch)
         if not hits:
             raise ValueError("No sequences found in input")
+        if validation:
+            hits = self.detecting_misclassification(hits, kept_records)
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
 
     # ------------------------------------------------------- persistence
