@@ -12,14 +12,21 @@ width:
 
 - reads: simulated FASTQ runs through ``xspect2_tpu_torch.classify``,
   an 8-class species model over 4 Mbp genomes and a 1-class genus model
-  over 32 Mbp, 400,000 150 bp reads each (kernels K1 and K2);
+  over 32 Mbp, 400,000 150 bp reads each (kernels K1 and K2); the species
+  reads again through ``pipelines.run_read_benchmark`` inside
+  ``profiling.trace``, whose trace must show K1 and K2 and gives the
+  device's busy share;
 - records: a 40-class x 4 Mbp SVM species model and the genus model
   over their 160 Mbp metagenome trained through
   ``train.train_from_directory(meta=True)`` (the SVM scoring runs K4,
   K3), ``classify_genus`` with that genus model on assemblies of two
   class genomes, then ``classify_species`` on 20 held-out draft
-  assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4, and
-  ``classify_genus`` on assemblies of the genus genome (K4, K3);
+  assemblies (4 Mbp, 20-400 contigs) at steps 1 and 4, the same
+  assemblies through ``pipelines.run_assembly_benchmark``, one of them
+  through the CLI (``python -m xspect2_tpu_torch.main``, its own process)
+  and the web app (werkzeug's test client) where click, werkzeug and
+  cheroot import, and ``classify_genus`` on assemblies of the genus
+  genome (K4, K3);
 - validation: ``classify_species(..., validation=True)`` on a FASTQ of
   66,050 150 bp reads of three classes, each class's genome seeded as
   its reference under the misclassification directory: the records
@@ -787,7 +794,7 @@ def run_path(kind, idx, genomes, rng, card):
     log(f"  {kind}: {SAMPLE} sampled reads equal the host reference exactly")
     require(res["num_kmers"]["r0000000"] == nk, f"{kind}: wrong k-mer count")
     breakdown(cls, kind, fastq, card)
-    return launches, reads
+    return launches, reads, counts, src
 
 
 def breakdown(cls, kind, fastq, card):
@@ -817,6 +824,76 @@ def breakdown(cls, kind, fastq, card):
         "hit dicts": (t4 - t3) - (t3 - t0), "result JSON": t5 - t4,
     }
     log(f"  breakdown [{card}] {kind}, s: " + ", ".join(f"{k} {v:.3f}" for k, v in steps.items()))
+
+
+def trace_busy_share(trace_dir: Path, kernel_names) -> dict:
+    """Parse the ``torch.profiler`` trace written into ``trace_dir``: the
+    kernel events of each of ``kernel_names`` (substrings of the CUDA
+    kernel names), and the device's busy share, the union of all kernel
+    intervals over the traced window (the first event's start to the last
+    event's end, host events included)."""
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"expected one trace file in {trace_dir}, found {len(files)}")
+    events = json.loads(files[0].read_text(encoding="utf-8"))["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X" and "dur" in e and "ts" in e]
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+                     for e in spans if e.get("cat") == "kernel")
+    found = {name: sum(name in k[2] for k in kernels) for name in kernel_names}
+    require(all(found.values()), f"kernels missing from the trace: {found}")
+    start = min(float(e["ts"]) for e in spans)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in spans)
+    busy, reach = 0.0, start
+    for t0, t1, _ in kernels:
+        if t1 > reach:
+            busy += t1 - max(t0, reach)
+            reach = t1
+    memcpy = sum(float(e["dur"]) for e in spans if e.get("cat") == "gpu_memcpy")
+    return dict(window_ms=(end - start) / 1e3, kernel_busy_ms=busy / 1e3, busy_share=busy / (end - start),
+                memcpy_ms=memcpy / 1e3, kernel_events=len(kernels), found=found)
+
+
+def run_read_benchmark_traced(idx, reads, src, counts, card):
+    """``pipelines.run_read_benchmark`` on the species model and the phase's
+    reads inside ``profiling.trace``: every read's prediction is the tie
+    rule's argmax of the counts the facade gave (checked against the host
+    on a sample above); K1 and K2 appear in the trace as kernel events;
+    prints the device's busy share over the traced window and the
+    engine's phases."""
+    from xspect2_tpu_torch import pipelines, profiling
+    from xspect2_tpu_torch.model_cache import load_cached
+    from xspect2_tpu_torch.model_management import metadata_path
+    from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
+
+    model = load_cached(ProbabilisticFilterModel, metadata_path("Smoke-species"), torch.device("cuda"))
+    names = np.array(idx.class_names)
+    true = list(names[src])
+    trace_dir = WORK / "trace"
+    profiling.reset()
+    reset_launches()
+    t0 = time.time()
+    with profiling.trace(trace_dir):
+        result = pipelines.run_read_benchmark(model, reads, true, out_dir=WORK / "read_benchmark", device="cuda")
+    e2e = time.time() - t0
+    launches = read_launches()
+    log(f"  read benchmark: kernel launches {launches}")
+    require(launches["unpack_2bit"] == launches["reads_query"] > 0 and launches["records_wire"] == 0,
+            "the read benchmark did not run K1 once for each K2 launch")
+    tie = (counts == counts.max(axis=1)[:, None]).sum(axis=1) > 1
+    want = np.where(tie, "ambiguous", names[counts.argmax(axis=1)])
+    got = np.array([row[2] for row in result.rows])
+    require(np.array_equal(got, want), "a read benchmark prediction differs from the tie rule on the facade's counts")
+    stats = result.stats
+    log(f"  read benchmark: every prediction is the tie rule's argmax of the facade's counts "
+        f"({int(tie.sum())} ambiguous); accuracy {stats['accuracy']:.6f}, macro F1 {stats['macro_f1']:.6f}, "
+        f"coverage {stats['coverage']:.6f}, selective accuracy {stats['selective_accuracy']:.6f}")
+    busy = trace_busy_share(trace_dir, ("unpack_kernel", "reads_query_kernel"))
+    log(f"  trace [{card}] read benchmark, {len(reads)} reads under torch.profiler ({e2e:.2f} s with the "
+        f"profiler): window {busy['window_ms']:.3f} ms, kernels busy {busy['kernel_busy_ms']:.3f} ms, "
+        f"device busy share {busy['busy_share']:.6f} (idle {1 - busy['busy_share']:.6f}); copies "
+        f"{busy['memcpy_ms']:.3f} ms; {busy['kernel_events']} kernel events, K1 {busy['found']['unpack_kernel']}, "
+        f"K2 {busy['found']['reads_query_kernel']}")
+    log(f"  phases [{card}] read benchmark: {json.dumps(profiling.report())}")
+    return launches, busy
 
 
 # ---------------------------------------------------------------- phase 5
@@ -982,6 +1059,35 @@ def check_records_kernels(rng, errors):
         )
     require(errors["records_wire"] == 0, "records_wire disagrees with its plain version")
     require(errors["records_query"] == 0, "records_query disagrees with its plain version")
+    # drawn from a child of rng, so the later phases draw what they drew
+    check_padded_restore(rng.spawn(1)[0], errors)
+
+
+def check_padded_restore(rng, errors):
+    """K4 at many short records with max_records padded by empty records:
+    55,925 reads of 150 bp in 65,536 record slots (the first batch of a
+    validated run), and 64 records of 256 bp in 128 slots whose last base
+    ends a 4,096-position tile; exact against its plain version."""
+    from xspect2_tpu_torch.ops import query
+
+    dev = torch.device("cuda")
+    genome = rng.integers(0, 4, size=1_000_000, dtype=np.uint8)
+    for n_real, read_len, max_records, chunk in ((55_925, 150, 65_536, query.DEFAULT_CHUNK),
+                                                 (64, 256, 128, 4096)):
+        starts = rng.integers(0, len(genome) - read_len, size=n_real)
+        records = [(f"r{i}", genome[at : at + read_len].copy()) for i, at in enumerate(starts)]
+        for i in range(0, n_real, 97):
+            records[i][1][int(rng.integers(0, read_len))] = 255
+        batch = query.prepare_batch(records, K, step=1, chunk=chunk)
+        real = int(batch.offsets[-1])
+        err, (_, rec, _) = check_restore(query.upload_records_wire(batch, max_records, dev),
+                                         batch.num_positions, K, 1, rng)
+        past = bool((rec[real:] == max_records - 1).all())
+        errors["records_wire"] = max(errors["records_wire"], err)
+        log(f"  records_wire vs plain: {n_real} records of {read_len} bp in {max_records} slots, "
+            f"{batch.num_positions} positions (the last real base ends a tile: {real % 4096 == 0}), "
+            f"max |err| {err}")
+        require(err == 0 and past, "records_wire disagrees with its plain version past empty records")
 
 
 def host_record_counts(idx, codes, step, k=K):
@@ -1131,7 +1237,7 @@ def time_records_kernels(engine, batch, card, errors, rng, label):
     out = {
         "records_wire": dict(
             k4, plain_ms=k4_plain, bound_ms=k4_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=library["ms"], library_device_ms=library["device_ms"],
+            library_ms=library["ms"], library_device_ms=library["device_ms"], library_device_by=library["device_by"],
             library_computes="record ids only: torch.searchsorted(offsets[1:], pos, right=True, out_int32=True)",
             ids_only=k4_ids,
         ),
@@ -1382,6 +1488,9 @@ def run_records(rng, card, errors):
             f"{checked} sampled contigs equal the host reference; num_kmers of every contig right")
         records_breakdown(ProbabilisticFilterSVMModel, "SmokeAsm-species", in_dir / "asm00.fasta", step, card)
 
+    add_launches(launches, run_assembly_benchmark(in_dir, assemblies, base / "species_step1", card))
+    add_launches(launches, run_surfaces(in_dir / "asm00.fasta", base / "species_step1" / "res_1.json", card))
+
     model = ProbabilisticFilterSVMModel.load(metadata_path("SmokeAsm-species"), device="cuda")
     batch = query.prepare_batch(assemblies[0][1], K, step=1, chunk=model.engine.chunk)
     timings = time_records_kernels(model.engine, batch, card, errors, rng, "one 4 Mbp assembly")
@@ -1391,6 +1500,107 @@ def run_records(rng, card, errors):
     single = json.loads((base / "species_step1" / "res_1.json").read_text(encoding="utf-8"))
     return launches, timings, dict(model=model, reads=asm_reads, contigs=contigs, label=label, single=single,
                                    val_genomes=val_genomes, child=child)
+
+
+def run_assembly_benchmark(in_dir, assemblies, facade_dir, card):
+    """``pipelines.run_assembly_benchmark`` on the 40-class model and the
+    held-out assemblies at step 1 (K4 + K3 through ``model.predict``):
+    its predictions are the ``classify_species`` predictions of the same
+    files; prints its F1 statistics."""
+    from xspect2_tpu_torch import pipelines
+    from xspect2_tpu_torch.model_cache import load_cached
+    from xspect2_tpu_torch.model_management import metadata_path
+    from xspect2_tpu_torch.models.svm_model import ProbabilisticFilterSVMModel
+
+    model = load_cached(ProbabilisticFilterSVMModel, metadata_path("SmokeAsm-species"), torch.device("cuda"))
+    samples = [(in_dir / f"asm{a:02d}.fasta", label) for a, (label, _) in enumerate(assemblies)]
+    reset_launches()
+    t0 = time.time()
+    result = pipelines.run_assembly_benchmark(model, samples, step=1, out_dir=WORK / "assembly_benchmark",
+                                              device="cuda")
+    e2e = time.time() - t0
+    launches = read_launches()
+    require(launches["records_wire"] == launches["records_query"] > 0 and launches["reads_query"] == 0,
+            "the assembly benchmark did not take the records route (K4 + K3 a batch)")
+    facade = [json.loads((facade_dir / f"res_{a + 1}.json").read_text(encoding="utf-8"))["prediction"]
+              for a in range(len(samples))]
+    require([row[2] for row in result.rows] == facade,
+            "an assembly benchmark prediction differs from classify_species'")
+    log(f"  assembly benchmark [{card}]: {len(samples)} assemblies in {e2e:.2f} s, launches {launches}; "
+        f"every prediction is classify_species'; stats {json.dumps(result.stats)}")
+    return launches
+
+
+def run_surfaces(asm_path, facade_json, card):
+    """The CLI (a subprocess, no ``--device``: the card) and the web app
+    (werkzeug's test client: upload, classify, join, result) classify one
+    held-out assembly on the 40-class model; both results must equal the
+    facade's JSON.  The CLI needs click and the app werkzeug; cheroot
+    serves the app (``web.serve``) and is not driven here.  Which of them
+    is missing on this machine is decided before anything runs and
+    printed, and a surface whose package is missing is not run."""
+    import importlib.util
+
+    missing = [m for m in ("click", "werkzeug", "cheroot") if importlib.util.find_spec(m) is None]
+    launches = {name: 0 for name in KERNELS}
+    if missing:
+        log(f"  surfaces: missing on this machine: {', '.join(missing)}"
+            + ("; the CLI is not run" if "click" in missing else "")
+            + ("; the web app is not run" if "werkzeug" in missing else "")
+            + ("; web.serve (cheroot) cannot serve here" if "cheroot" in missing else ""))
+    if "click" in missing and "werkzeug" in missing:
+        return launches
+    want = json.loads(facade_json.read_text(encoding="utf-8"))
+    out = WORK / "surfaces"
+    out.mkdir()
+    if "click" not in missing:
+        run_cli(asm_path, out, want, card)
+    if "werkzeug" not in missing:
+        launches = run_web_app(asm_path, want, card)
+    return launches
+
+
+def run_cli(asm_path, out, want, card):
+    """``python -m xspect2_tpu_torch.main classify species`` in its own
+    process, with no ``--device`` (the default: the card)."""
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "xspect2_tpu_torch.main", "classify", "species", "-g", "SmokeAsm",
+         "-i", str(asm_path), "-o", str(out / "cli.json")],
+        cwd=ROOT, capture_output=True, text=True, timeout=600, check=False)
+    cli_s = time.time() - t0
+    require(proc.returncode == 0, f"the CLI failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    require(json.loads((out / "cli.json").read_text(encoding="utf-8")) == want,
+            "the CLI's result differs from the facade's")
+    log(f"  surfaces [{card}]: CLI classify species (its own process, default --device cuda) in {cli_s:.2f} s "
+        f"equals the facade's JSON")
+
+
+def run_web_app(asm_path, want, card):
+    """The web app through werkzeug's test client: upload, classify, the
+    task joined, the result fetched."""
+    from werkzeug.test import Client
+
+    from xspect2_tpu_torch.web import XspectWebApp
+
+    app = XspectWebApp()
+    client = Client(app)
+    reset_launches()
+    t0 = time.time()
+    with open(asm_path, "rb") as f:
+        up = client.post("/api/upload-file", data={"file": (f, asm_path.name)})
+    require(up.status_code == 200, f"web upload: {up.status_code} {up.data[:200]!r}")
+    started = client.post(f"/api/classify?classification_type=Species&model=SmokeAsm&file={asm_path.name}")
+    require(started.status_code == 200, f"web classify: {started.status_code} {started.data[:200]!r}")
+    app.tasks.join_all(600)
+    res = client.get(f"/api/classification-result?uuid={started.get_json()['uuid']}")
+    web_s = time.time() - t0
+    launches = read_launches()
+    require(res.status_code == 200 and res.get_json() == want, "the web app's result differs from the facade's")
+    require(launches["records_wire"] == launches["records_query"] > 0, "the web app's task did not run K4 + K3")
+    log(f"  surfaces [{card}]: web app upload + classify + result in {web_s:.2f} s (launches {launches}) "
+        f"equals the facade's JSON")
+    return launches
 
 
 def run_genus_assemblies(genus_genome, genus_idx, rng, card):
@@ -1532,9 +1742,9 @@ def run_validation(asm, card, errors):
     batch = prepare_batch([(r.id, dna.encode(r.seq)) for r in next(iter(model._iter_record_batches(records)))],
                           K, step=1, chunk=model.engine.chunk)
     timings = time_records_kernels(model.engine, batch, card, errors, rng, "first batch of the validated reads")
-    # K4 finds each thread's records by walking the offsets one at a time,
-    # so the thread that reaches the end of the real bases walks every empty
-    # record up to max_records; the same batch with no empty records
+    # K4 moves a thread past a run of empty records by a binary search, not
+    # one record at a time: the batch with its empty records up to
+    # max_records and the same batch with none should take about as long
     n_pos, n_real = batch.num_positions, int(batch.offsets[-1])
     walk, ids = {}, []
     for max_records in (query._next_pow2(max(8, batch.num_records)), batch.num_records):
@@ -1547,6 +1757,10 @@ def run_validation(asm, card, errors):
         f"after the {batch.num_records} real ones): "
         + "; ".join(f"{m} ({m - batch.num_records} empty): {ms_text(t)}" for m, t in walk.items()))
     timings["records_wire"]["ids_only_by_max_records"] = {str(m): t for m, t in walk.items()}
+    k4 = timings["records_wire"]
+    library = dict(ms=k4["library_ms"], device_ms=k4["library_device_ms"], device_by=k4["library_device_by"])
+    log(f"  records_wire at the first validation batch [{card}]: {ms_text(k4)}; torch.searchsorted "
+        f"(record ids only): {ms_text(library)}")
     launches = {name: launches[name] + plain_launches[name] for name in KERNELS}
     return launches, timings, dict(e2e_s=e2e, reads_per_s=n / e2e, **seconds)
 
@@ -2677,7 +2891,10 @@ def main() -> int:
         (species_idx.num_hashes, species_idx.fields_per_word) == (2, 4),
         "species geometry is not the headline h=2, P=4",
     )
-    sp_launches, sp_reads = run_path("species", species_idx, genomes, rng, card)
+    sp_launches, sp_reads, sp_counts, sp_src = run_path("species", species_idx, genomes, rng, card)
+    log("phase 3a: the read benchmark pipeline on the species reads, under the profiler")
+    rb_launches, rb_busy = run_read_benchmark_traced(species_idx, sp_reads, sp_src, sp_counts, card)
+    del sp_counts, sp_src
     timings = time_kernels(species_idx, sp_reads, card, errors)
     log("phase 3b: species reads on (data x blk) meshes, every shard in turn on this card")
     k2_sharded = run_sharded_reads("species", species_idx, sp_reads, card, errors)
@@ -2686,7 +2903,7 @@ def main() -> int:
     log("phase 4: genus reads and genus assemblies, 1 class x 32 Mbp")
     genus_genome = rng.integers(0, 4, size=(1, 32_000_000), dtype=np.uint8)
     genus_idx = build_index(["smoke"], genus_genome)
-    ge_launches, ge_reads = run_path("genus", genus_idx, genus_genome, rng, card)
+    ge_launches, ge_reads, _, _ = run_path("genus", genus_idx, genus_genome, rng, card)
     ge_timings = time_kernels(genus_idx, ge_reads, card, errors)
     log("phase 4b: genus reads on (data x blk) meshes, every shard in turn on this card")
     run_sharded_reads("genus", genus_idx, ge_reads, card, errors)
@@ -2739,7 +2956,7 @@ def main() -> int:
     all_timings["records_query"]["block_sharded"] = k3_sharded
     for name in ("records_wire", "records_query"):
         all_timings[name]["validation"] = val_timings[name]
-    all_launches = (sp_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
+    all_launches = (sp_launches, rb_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
                     mlst_launches, x_launches, p_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2752,9 +2969,13 @@ def main() -> int:
 
     log(f"svm head [{card}]: {json.dumps(dict(head_timing, calls=SVMHead.calls))} (calls: every prediction of the run)")
     log(f"validation [{card}]: {json.dumps(val_e2e)}")
+    log(f"device busy share [{card}]: {rb_busy['busy_share']:.6f} over the traced read benchmark "
+        f"({rb_busy['window_ms']:.3f} ms window, {rb_busy['kernel_busy_ms']:.3f} ms in kernels)")
     log(
-        f"kernels [{card}]: launches summed over every main-path run (species and genus reads, "
-        f"genus assemblies, the 40-class fit with the metagenome genus assemblies and both assembly runs, "
+        f"kernels [{card}]: launches summed over every main-path run (species and genus reads, the read "
+        f"benchmark, "
+        f"genus assemblies, the 40-class fit with the metagenome genus assemblies, both assembly runs, the "
+        f"assembly benchmark and the web app's task, "
         f"the sharded classifiers' public methods at NCCL world size 1, the validated and the plain run "
         f"of the validation reads, classify_mlst and the three MLST predict runs, the xxh3 genus "
         f"assemblies and reads with the filter's count API, the microbenchmark); unpack_2bit and reads_query "

@@ -2,6 +2,7 @@
 refuses what it does not port yet."""
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -28,15 +29,17 @@ MODULES = sorted(
 )
 
 
-def test_port_imports_neither_jax_nor_the_jax_package():
+def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
     code = (
         "import importlib, json, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'sklearn', 'xspect2_tpu')]\n"
         "print(json.dumps(bad))\n"
     )
+    # the CLI reads the model registry at import: give it an empty one
+    env = {**os.environ, "XSPECT_DATA_ROOT": str(tmp_path / "data")}
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300, env=env
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
@@ -48,11 +51,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "tools.microbench_probe", "train", "handlers.ncbi", "misclassification_detection",
         "misclassification_detection.mapping", "misclassification_detection.point_pattern_analysis",
         "misclassification_detection.simulate_reads", "reference_import", "download_models",
+        "main", "web", "webui", "profiling", "pipelines", "pipelines.benchmark",
+        "pipelines.pangenome", "pipelines.score_svm",
     ):
         assert f"xspect2_tpu_torch.{module}" in MODULES
 
 
-def test_the_model_modules_do_not_import_requests():
+def test_the_model_modules_do_not_import_requests(tmp_path):
     """``requests`` is needed by the handlers only, which the MLST model
     imports inside its ST-name lookup, training, the reference import and
     the misclassification detection inside their functions, and the
@@ -65,8 +70,9 @@ def test_the_model_modules_do_not_import_requests():
         "print(json.dumps([m for m in sys.modules if m.split('.')[0] == 'requests'\n"
         "                  or m.startswith('xspect2_tpu_torch.handlers.')]))\n"
     )
+    env = {**os.environ, "XSPECT_DATA_ROOT": str(tmp_path / "data")}
     out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300, env=env
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
@@ -86,7 +92,8 @@ def test_port_sources_name_no_jax_import():
         "mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py", "mesh.py",
         "distributed.py", "sharded.py", "block_sharded.py", "probe_select.py", "microbench_probe.py",
         "train.py", "ncbi.py", "mapping.py", "point_pattern_analysis.py", "simulate_reads.py",
-        "reference_import.py", "download_models.py",
+        "reference_import.py", "download_models.py", "main.py", "web.py", "webui.py", "profiling.py",
+        "benchmark.py", "pangenome.py", "score_svm.py",
     } <= {p.name for p in sources}
 
 
@@ -134,6 +141,53 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp
     with pytest.raises(RuntimeError):
         xspect2_tpu_torch.resolve_device("cuda")
     assert xspect2_tpu_torch.resolve_device("cpu").type == "cpu"
+    _surfaces_need_cuda_unless_asked_for_cpu(tmp_path, saved)
+
+
+def _surfaces_need_cuda_unless_asked_for_cpu(tmp_path, saved):
+    """The CLI without ``--device`` (a usage error naming ``--device cpu``),
+    the web app's tasks (500 with the message; the page and the registry
+    answer), the benchmarks, the pangenome training (before its retry
+    loop) and the grid search raise without a card."""
+    from click.testing import CliRunner
+    from werkzeug.test import Client
+
+    from xspect2_tpu_torch import main, pipelines, web
+    from xspect2_tpu_torch.pipelines import score_svm
+
+    tree = tmp_path / "tree"
+    (tree / "cobs" / "a").mkdir(parents=True)
+    for args in (["models", "train", "directory", "-g", "Anything", "-i", str(tree)],
+                 ["models", "import", "-p", str(tree)],
+                 ["models", "train", "ncbi", "-g", "Anything"]):
+        result = CliRunner().invoke(main.cli, args)
+        assert result.exit_code == 1 and "device='cpu'" in result.output, result.output
+        assert "--device cpu" in result.output
+    assert CliRunner().invoke(main.cli, ["models", "list"]).exit_code == 0
+    client = Client(web.XspectWebApp())
+    assert client.get("/").status_code == 200 and client.get("/api/list-models").status_code == 200
+    (tmp_path / "in.fa").write_text(">r\n" + "ACGT" * 20 + "\n", encoding="utf-8")
+    with open(tmp_path / "in.fa", "rb") as f:
+        assert client.post("/api/upload-file", data={"file": (f, "in.fa")}).status_code == 200
+    for url in ("/api/classify?classification_type=Species&model=Anything&file=in.fa",
+                "/api/classify?classification_type=Genus&model=Anything&file=in.fa",
+                "/api/filter?filter_type=Genus&genus=Anything&input_file=in.fa",
+                "/api/filter?filter_type=Species&genus=Anything&input_file=in.fa&filter_species=a",
+                "/api/train?genus=Anything"):
+        resp = client.post(url)
+        assert resp.status_code == 500 and "device='cpu'" in resp.get_json()["detail"], url
+    assert web.XspectWebApp().tasks._threads == []
+    reads = np.zeros((4, 40), dtype=np.uint8)
+    for entry in (
+        lambda: pipelines.run_read_benchmark(saved, reads, ["a"] * 4),
+        lambda: pipelines.run_assembly_benchmark(saved, []),
+        lambda: pipelines.train_pangenome(["Anything"], data_root=tmp_path, retry_delay=0),
+        lambda: pipelines.grid_search_svm(np.eye(4), ["a", "a", "b", "b"]),
+        lambda: score_svm.grid_search_model(saved),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            entry()
+    assert pipelines.run_read_benchmark(saved, reads, ["a"] * 4, device="cpu").stats["total"] == 4
 
 
 def test_sharded_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):

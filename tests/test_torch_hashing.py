@@ -42,3 +42,20 @@ def test_block_words_fieldbase_forms_match_jax_package():
         for w, g_np, g_t in zip(want, got_np, got_t):
             np.testing.assert_array_equal(g_np, w)
             np.testing.assert_array_equal(g_t.numpy(), w.astype(np.int64))
+
+
+def test_block_and_rows_matches_jax_package():
+    hi, lo = _pairs(20_000, seed=11)
+    for num_blocks, rpb, h in ((12345, 128, 7), (1, 8, 1), (77_777, 64, 3)):
+        want = jax_hashing.block_and_rows(hi, lo, num_blocks, rpb, h, xp=np)
+        got = hashing.block_and_rows(hi, lo, num_blocks, rpb, h)
+        for w, g in zip(want, got):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    for mod, extra in ((jax_hashing, {"xp": np}), (hashing, {})):
+        try:
+            mod.block_and_rows(hi, lo, 100, 100, 3, **extra)
+        except ValueError as e:
+            assert "power of two" in str(e)
+        else:
+            raise AssertionError("rows_per_block 100 was accepted")

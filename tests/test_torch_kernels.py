@@ -212,6 +212,47 @@ def test_restore_records_wire_kernel_matches_plain(cuda_device, shape, step):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["55,925 reads padded to 65,536", "ends on a tile edge", "no empty record"])
+@pytest.mark.parametrize("step", [1, 4])
+def test_records_wire_kernel_past_empty_records(cuda_device, shape, step):
+    """K4 at many short records with ``max_records`` padded by empty
+    records (the first batch of a validated run: 55,925 reads of 150 bp
+    in 65,536 record slots), at a batch whose last base ends a 4,096-position
+    tile, and at one with no empty record: exact against its plain version,
+    the positions past the last real base in record ``max_records - 1``."""
+    rng = np.random.default_rng(step)
+    n_real, read_len, max_records, chunk = {
+        "55,925 reads padded to 65,536": (55_925, 150, 65_536, query.DEFAULT_CHUNK),
+        "ends on a tile edge": (64, 256, 128, 4096),
+        "no empty record": (8_192, 150, 8_192, query.DEFAULT_CHUNK),
+    }[shape]
+    genome = rng.integers(0, 4, size=400_000, dtype=np.uint8)
+    starts = rng.integers(0, len(genome) - read_len, size=n_real)
+    records = [(f"r{i}", genome[s : s + read_len]) for i, s in enumerate(starts)]
+    batch = query.prepare_batch(records, 21, step=step, chunk=chunk)
+    real = int(batch.offsets[-1])
+    if shape == "ends on a tile edge":
+        assert real % 4096 == 0 and batch.num_positions == real
+    packed, bad_pos, offsets = query.upload_records_wire(batch, max_records, cuda_device)
+    n_pos = batch.num_positions
+    for wire in ((packed, bad_pos, offsets), (None, None, offsets)):
+        before = query.records_wire.launches
+        if wire[0] is None:
+            got = query.records_wire(offsets, n_pos, k=21, step=step)
+            want = query.records_wire_plain(offsets, n_pos, k=21, step=step)
+        else:
+            got = query.restore_records_wire(*wire, n_pos, k=21, step=step)
+            want = query.restore_records_wire_plain(*wire, n_pos, k=21, step=step)
+        assert query.records_wire.launches == before + 1
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    rec = got[0].cpu().numpy()
+    assert (rec[real:] == max_records - 1).all()
+    np.testing.assert_array_equal(rec[:real], np.repeat(np.arange(n_real), read_len))
+    np.testing.assert_array_equal(got[1].cpu().numpy(), batch.valid)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", list(GEOMETRIES))
 @pytest.mark.parametrize("step", [1, 3])
 def test_records_query_kernel_matches_plain_and_host(cuda_device, name, step):

@@ -11,7 +11,7 @@ On the CPU the wrappers run their plain versions, which are held exactly
 against the JAX package's prepared batches (``prepare_batch``) and, through
 the plain records query, against its packed-wire query.  The kernels'
 index arithmetic (the tiles, the 32-way search, the running record and
-phase counters of K4, the staged span and the two unpack paths of K1) is
+phase counters of K4 with its search past a run of short or empty records, the staged span and the two unpack paths of K1) is
 modelled here step for step in numpy, with the tile sizes read from the
 sources, and the models are held against the plain versions across read
 lengths that are not multiples of 4 or 16 and offsets with empty records.
@@ -231,7 +231,8 @@ def test_warp_search_is_searchsorted():
 
 def _k4_model(offsets, n_pos, k, step):
     """Record ids and validity as K4's tiles and threads compute them, the
-    ids out through the block's rotated shared-memory slots."""
+    ids out through the block's rotated shared-memory slots, and the most
+    offsets any one thread loads while it moves from record to record."""
     c = _constants("records_wire.cu")
     per_thread = c["kPerThread"]
     tile = c["kThreads"] * per_thread
@@ -239,6 +240,7 @@ def _k4_model(offsets, n_pos, k, step):
     ends = offsets[1:]
     rec_ids = np.empty(n_pos, dtype=np.int64)
     valid = np.empty(n_pos, dtype=bool)
+    most_loads = 0
     for p0 in range(0, n_pos, tile):
         first = _warp_search(ends, 0, r, p0, True)
         last = _warp_search(ends, 0, r, p0 + tile - 1, True)
@@ -250,12 +252,24 @@ def _k4_model(offsets, n_pos, k, step):
                 lo, hi = (mid + 1, hi) if ends[mid] <= p else (lo, mid)
             rec = lo
             nxt = ends[rec] if rec < r else np.inf
+            loads = 0
             for t in range(per_thread):
                 pos = p + t
                 if t == 0 or pos >= nxt:
-                    while pos >= nxt:
+                    if pos >= nxt:
+                        # one step, then the upper bound of pos up to the tile's last record
                         rec += 1
                         nxt = ends[rec] if rec < r else np.inf
+                        loads += 1
+                        if pos >= nxt:
+                            a, b = rec + 1, last
+                            while a < b:
+                                mid = (a + b) >> 1
+                                a, b = (mid + 1, b) if ends[mid] <= pos else (a, mid)
+                                loads += 1
+                            rec = a
+                            nxt = ends[rec] if rec < r else np.inf
+                            loads += 1
                     rc = min(rec, r - 1)
                     start = int(offsets[rc])
                     nk = int(offsets[rc + 1]) - start - (k - 1)
@@ -265,6 +279,7 @@ def _k4_model(offsets, n_pos, k, step):
                     ids[pos - p0], valid[pos] = rc, rel < nk and phase == 0
                 rel += 1
                 phase = 0 if phase + 1 == step else phase + 1
+            most_loads = max(most_loads, loads)
         # shared memory: quarter j of thread tid's ids at slot 4 tid + ((j + (tid >> 1)) & 3)
         slots = np.empty((tile // 4, 4), dtype=np.int64)
         for tid in range(tile // per_thread):
@@ -276,7 +291,7 @@ def _k4_model(offsets, n_pos, k, step):
             for e in range(4):
                 if pos + e < n_pos:
                     rec_ids[pos + e] = slots[slot, e]
-    return rec_ids, valid
+    return rec_ids, valid, most_loads
 
 
 @pytest.mark.parametrize("case", ["assembly", "short records", "empty records between", "one record"])
@@ -299,9 +314,38 @@ def test_k4_tile_walk_equals_the_plain_version(case, step):
     offsets[len(lengths) + 1 :] = offsets[len(lengths)]
     n_pos = int(offsets[-1]) + 3000  # padding past the last record
     want_rec, want_valid = query.records_wire_plain(torch.from_numpy(offsets), n_pos, k=5, step=step)
-    rec, valid = _k4_model(offsets, n_pos, 5, step)
+    rec, valid, _ = _k4_model(offsets, n_pos, 5, step)
     np.testing.assert_array_equal(rec, want_rec.numpy())
     np.testing.assert_array_equal(valid, want_valid.numpy())
+
+
+@pytest.mark.parametrize("case", ["padded short records", "ends on a tile edge", "no empty record"])
+def test_k4_search_past_empty_records_equals_the_plain_version(case):
+    """Short records padded with many empty ones up to ``max_records``
+    (the shape of a validated batch of reads): K4's step-then-search gives
+    the plain version's ids and validity, and no thread loads more than a
+    step and a binary search's worth of offsets, where a walk one record at
+    a time would load one offset per empty record."""
+    c = _constants("records_wire.cu")
+    tile = c["kThreads"] * c["kPerThread"]
+    n_real, read_len, max_records = {
+        "padded short records": (700, 30, 2048),
+        "ends on a tile edge": (tile // 32 * 3, 32, 1024),  # the last base ends a tile
+        "no empty record": (1024, 30, 1024),
+    }[case]
+    offsets = np.zeros(max_records + 1, dtype=np.int32)
+    offsets[1 : n_real + 1] = np.arange(1, n_real + 1) * read_len
+    offsets[n_real + 1 :] = offsets[n_real]
+    n_pos = int(offsets[-1]) + (0 if case == "ends on a tile edge" else 2 * tile + 5)
+    if case == "ends on a tile edge":
+        assert n_pos % tile == 0
+    for step in (1, 4):
+        want_rec, want_valid = query.records_wire_plain(torch.from_numpy(offsets), n_pos, k=21, step=step)
+        rec, valid, loads = _k4_model(offsets, n_pos, 21, step)
+        np.testing.assert_array_equal(rec, want_rec.numpy())
+        np.testing.assert_array_equal(valid, want_valid.numpy())
+        assert loads <= 2 + int(np.log2(max_records)), loads
+    assert (want_rec.numpy()[int(offsets[n_real]) :] == max_records - 1).all()
 
 
 def _k1_model(packed, rows, cols, read_len):

@@ -62,6 +62,22 @@ def kmer_hash_words(hi: np.ndarray, lo: np.ndarray):
     return a, b, c
 
 
+def block_and_rows(hi: np.ndarray, lo: np.ndarray, num_blocks: int, rows_per_block: int, num_hashes: int):
+    """Block id and row ids for each packed k-mer.
+
+    Returns ``(block, rows)`` with ``block`` shape ``[n]`` (uint32 in
+    [0, num_blocks)) and ``rows`` shape ``[n, num_hashes]`` (uint32 in
+    [0, rows_per_block)).  ``rows_per_block`` must be a power of two.
+    """
+    if rows_per_block & (rows_per_block - 1):
+        raise ValueError("rows_per_block must be a power of two")
+    a, b, c = kmer_hash_words(hi, lo)
+    block = a % np.uint32(num_blocks)
+    i = np.arange(num_hashes, dtype=np.uint32)
+    rows = (b[..., None] + i * c[..., None]) & np.uint32(rows_per_block - 1)
+    return block, rows
+
+
 def block_words_fieldbase(
     hi,
     lo,

@@ -37,9 +37,13 @@
 // entries in the ascending list.  Each thread then takes 16 consecutive
 // positions: one 4-byte load of packed bytes gives their 16 codes, stored
 // as one 16-byte store; it finds its first record by a binary search
-// between the tile's first and last, then walks forward one record at a
-// time (neighbouring positions almost always share one), the phase
-// rel % step kept by a running counter; its 16 validity bytes go out as
+// between the tile's first and last, then moves forward one record when
+// a position crosses a record end (neighbouring positions almost always
+// share one) and, when the next end still lies at or before the position
+// (a run of short or empty records, such as the empty records that pad a
+// batch to max_records), binary-searches the rest up to the tile's last
+// record, so no thread walks the padding one record at a time; the phase
+// rel % step is kept by a running counter; its 16 validity bytes go out as
 // one 16-byte store, and its 16 record ids through shared memory, so that
 // the block writes them with 16-byte stores of consecutive lanes on
 // consecutive addresses: whole 32-byte sectors, where a thread's own 64
@@ -128,6 +132,7 @@ records_wire_kernel(const uint8_t* __restrict__ packed, int64_t packed_len,
       if (__ldg(offsets + 1 + mid) <= p) lo = mid + 1;
       else hi = mid;
     }
+    const int last = int(s_found[1]);
     int rec = lo;
     int64_t next = rec < max_records ? __ldg(offsets + 1 + rec) : INT64_MAX;
     int rc = 0, rel = 0, nk = 0, phase = 0;
@@ -137,9 +142,23 @@ records_wire_kernel(const uint8_t* __restrict__ packed, int64_t packed_len,
     for (int t = 0; t < kPerThread; ++t) {
       const int pos = p + t;
       if (t == 0 || pos >= next) {
-        while (pos >= next) {
+        if (pos >= next) {
+          // one step: neighbouring positions cross one record end at a time
           ++rec;
           next = rec < max_records ? __ldg(offsets + 1 + rec) : INT64_MAX;
+          if (pos >= next) {
+            // a run of records that end at or before pos (short or empty
+            // records): the upper bound of pos in offsets[1..], after rec
+            // and at most the tile's last record
+            int a = rec + 1, b = last;
+            while (a < b) {
+              const int mid = (a + b) >> 1;
+              if (__ldg(offsets + 1 + mid) <= pos) a = mid + 1;
+              else b = mid;
+            }
+            rec = a;
+            next = rec < max_records ? __ldg(offsets + 1 + rec) : INT64_MAX;
+          }
         }
         rc = min(rec, max_records - 1);
         const int start = __ldg(offsets + rc);

@@ -2,8 +2,9 @@
 
 The library (``native/build/libxspect.so``, built by ``make -C native``)
 parses FASTA/FASTQ files into code arrays, inserts k-mers into an index
-with several threads and 2-bit-packs read matrices for the device
-wire.  It is host code shared by both packages; this module is the
+with several threads, counts one sequence's hits on the host (the
+single-core reference query), packs canonical k-mers, hashes rows with
+XXH3-64 and 2-bit-packs read matrices for the device wire.  It is host code shared by both packages; this module is the
 port's own copy of the bindings it needs.  Every entry point has a
 numpy fallback, used when the library is missing; the fallbacks stand
 in for the host library only, never for the device.
@@ -102,8 +103,20 @@ def _configure(lib):
     ]
     lib.xs_insert_kmers.restype = None
 
+    lib.xs_count_hits.argtypes = [
+        u32p, i64, i32, i32, i32, i32, i32, u8p, i64, i32, i32, i64p,
+    ]
+    lib.xs_count_hits.restype = None
+
+    lib.xs_canonical_kmers.argtypes = [u8p, i64, i32, i32, u32p, u32p, u8p]
+    lib.xs_canonical_kmers.restype = i64
+
     lib.xs_pack_2bit.argtypes = [u8p, i64, i64, u8p, u8p, i32]
     lib.xs_pack_2bit.restype = None
+
+    u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.xs_xxh3_64.argtypes = [u8p, i64, i64, ctypes.c_uint64, u64p]
+    lib.xs_xxh3_64.restype = i32
 
 
 def available() -> bool:
@@ -186,6 +199,68 @@ def insert_kmers(index, class_idx: int, codes: np.ndarray, num_threads: int = 0)
         index.k,
         num_threads,
     )
+
+
+def count_hits(index, codes: np.ndarray, step: int = 1) -> np.ndarray:
+    """Native single-core reference query: per-class hit counts."""
+    lib = _load()
+    if lib is None:
+        from xspect2_tpu_torch.core import dna
+
+        hi, lo, valid = dna.canonical_kmers(codes, index.k, step=step)
+        return index.count_hits_host(hi, lo, valid)
+    out = np.zeros(index.num_classes, dtype=np.int64)
+    lib.xs_count_hits(
+        index.table,
+        index.num_blocks,
+        index.rows_per_block,
+        index.class_words,
+        index.num_hashes,
+        index.fields_per_word,
+        index.num_classes,
+        np.ascontiguousarray(codes, dtype=np.uint8),
+        len(codes),
+        index.k,
+        step,
+        out,
+    )
+    return out
+
+
+def canonical_kmers(codes: np.ndarray, k: int, step: int = 1):
+    """Canonical k-mer packing ``(hi, lo, valid)`` of every ``step``-th
+    window, as :func:`xspect2_tpu_torch.core.dna.canonical_kmers` gives it."""
+    lib = _load()
+    if lib is None:
+        from xspect2_tpu_torch.core import dna
+
+        return dna.canonical_kmers(codes, k, step=step)
+    n = len(codes)
+    if n < k:
+        z = np.zeros(0, dtype=np.uint32)
+        return z, z.copy(), np.zeros(0, dtype=bool)
+    n_windows = (n - k) // step + 1
+    hi = np.zeros(n_windows, dtype=np.uint32)
+    lo = np.zeros(n_windows, dtype=np.uint32)
+    valid = np.zeros(n_windows, dtype=np.uint8)
+    lib.xs_canonical_kmers(np.ascontiguousarray(codes, dtype=np.uint8), n, k, step, hi, lo, valid)
+    return hi, lo, valid.astype(bool)
+
+
+def xxh3_64_batch(arr: np.ndarray, seed: int = 0):
+    """XXH3-64 of every row of an [n, L] uint8 array (L <= 240), or None
+    without the library (callers then hash with ``core/xxh3.py``)."""
+    lib = _load()
+    if lib is None:
+        return None
+    if arr.ndim != 2 or arr.dtype != np.uint8:
+        raise ValueError("expected an [n, L] uint8 array")
+    arr = np.ascontiguousarray(arr)
+    out = np.empty(arr.shape[0], dtype=np.uint64)
+    rc = lib.xs_xxh3_64(arr, arr.shape[0], arr.shape[1], seed & (2**64 - 1), out)
+    if rc != 0:
+        raise ValueError("row length out of the supported 0..240 range")
+    return out
 
 
 # ---------------------------------------------------------------- wire pack

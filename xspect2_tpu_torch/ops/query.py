@@ -43,6 +43,11 @@ Each kernel wrapper has a plain PyTorch version of the same function
 beside it.  The wrapper uses the plain version only for tensors on the
 CPU (the tests); for a CUDA tensor it launches the kernel or raises.
 Each wrapper counts its launches in its ``launches`` attribute.
+
+The host packing of a wire, the launches of a records query and its
+fetch are timed as the phases ``query.pack``, ``query.dispatch`` and
+``query.sync`` of :mod:`xspect2_tpu_torch.profiling`, where the JAX
+package's engine times them.
 """
 
 import ctypes
@@ -52,7 +57,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from xspect2_tpu_torch import native, resolve_device
+from xspect2_tpu_torch import native, profiling, resolve_device
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.core.dna import INVALID
 from xspect2_tpu_torch.core.hashing import MASK32, kmer_hash_words_torch
@@ -248,13 +253,14 @@ def packed_wire_for_batch(batch: PreparedBatch, max_records: int):
     entries with the total real base count.  Padding positions are not
     patched: no valid window reads them.
     """
-    packed, _bad = native.pack_2bit(batch.codes[None, :])
-    packed = packed.reshape(-1)
-    n_real = int(batch.offsets[-1])
-    bad_pos = np.nonzero(batch.codes[:n_real].astype(np.uint8) > 3)[0].astype(np.int32)
-    (bad_pos,) = _pad_patch_list((bad_pos,), (len(batch.codes),))
-    offsets = np.full(max_records + 1, n_real, dtype=np.int32)
-    offsets[: len(batch.offsets)] = batch.offsets
+    with profiling.phase("query.pack"):
+        packed, _bad = native.pack_2bit(batch.codes[None, :])
+        packed = packed.reshape(-1)
+        n_real = int(batch.offsets[-1])
+        bad_pos = np.nonzero(batch.codes[:n_real].astype(np.uint8) > 3)[0].astype(np.int32)
+        (bad_pos,) = _pad_patch_list((bad_pos,), (len(batch.codes),))
+        offsets = np.full(max_records + 1, n_real, dtype=np.int32)
+        offsets[: len(batch.offsets)] = batch.offsets
     return packed, bad_pos, offsets
 
 
@@ -1178,7 +1184,9 @@ class DeviceQueryEngine:
         ``(packed, bad_rows, bad_cols)``, rows padded to a whole number
         of ``reads_per_chunk``."""
         n_pad = -(-len(reads) // reads_per_chunk) * reads_per_chunk
-        return wire_to_device(pack_reads_wire(reads, self.index.k, n_pad), self.device)
+        with profiling.phase("query.pack"):
+            wire = pack_reads_wire(reads, self.index.k, n_pad)
+        return wire_to_device(wire, self.device)
 
     def count_hits_reads(
         self,
@@ -1248,23 +1256,27 @@ class DeviceQueryEngine:
             return np.zeros((0, idx.num_classes), dtype=np.int64)
         max_records = _next_pow2(max(8, batch.num_records))
         if wire == "packed":
+            # the host packing, once a batch, is the phase "query.pack"
             packed, bad_pos, offsets = self.upload_records_wire(batch, max_records)
-            codes, rec_ids, valid = restore_records_wire(
-                packed, bad_pos, offsets, batch.num_positions, k=idx.k, step=batch.step
+        with profiling.phase("query.dispatch"):
+            if wire == "packed":
+                codes, rec_ids, valid = restore_records_wire(
+                    packed, bad_pos, offsets, batch.num_positions, k=idx.k, step=batch.step
+                )
+            else:
+                codes, rec_ids, valid = (
+                    torch.from_numpy(a).to(self.device)
+                    for a in (batch.codes, batch.rec_ids, batch.valid)
+                )
+            shortest = None if batch.offsets is None else int(np.diff(batch.offsets).min())
+            out = records_query(
+                codes, rec_ids, valid, self.table, max_records=max_records,
+                min_record_len=shortest, **self.geometry(),
             )
-        else:
-            codes, rec_ids, valid = (
-                torch.from_numpy(a).to(self.device)
-                for a in (batch.codes, batch.rec_ids, batch.valid)
-            )
-        shortest = None if batch.offsets is None else int(np.diff(batch.offsets).min())
-        out = records_query(
-            codes, rec_ids, valid, self.table, max_records=max_records,
-            min_record_len=shortest, **self.geometry(),
-        )
         if not block:
             return out
-        return out[: batch.num_records].cpu().numpy().astype(np.int64)
+        with profiling.phase("query.sync"):
+            return out[: batch.num_records].cpu().numpy().astype(np.int64)
 
     def count_hits_records(self, records, step: int = 1, block: bool = True):
         """``(name, codes)`` records -> int64 [n_records, C] hits."""
