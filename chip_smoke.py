@@ -2714,19 +2714,155 @@ def run_sharded_records(asm, card, errors):
     int(head.predict_indices(x)[0])
     host_ms = (time.time() - t0) * 1e3
     SVMHead.calls = calls  # timing is no prediction of the main path
-    # the head's bound: its parameters and the scores read once, the index written
+    # the head's bound: the fitted parameters (support vectors, dual
+    # coefficients, intercepts) and the scores read once, the index written;
+    # operations on the same basis: the kernel row, each support vector's
+    # coefficients, one sign and one vote a pair (``coef`` and the vote
+    # matrices are the head's own layout of the parameters, not work)
     n_sv = int(head.support_vectors.shape[0])
-    head_bytes = sum(b.numel() * b.element_size() for b in head.buffers()) + x.numel() * 4 + 8
-    head_flops = 3 * n_sv * x.shape[1] + 4 * n_sv * (len(head.classes) - 1) + 4 * len(head.pairs) * len(head.classes)
+    head_bytes = sum(b.numel() * b.element_size() for b in (head.support_vectors, head.dual_coef, head.intercept))
+    head_bytes += x.numel() * 4 + 8
+    head_flops = 3 * n_sv * x.shape[1] + 2 * n_sv * (len(head.classes) - 1) + 2 * len(head.pairs)
     head_bound = max(head_bytes / HBM_BYTES_PER_S, head_flops / INT_OPS_PER_S) * 1e3
+    near = {"main_head": check_head_near_zero(head, "the main path's head", tie=1e-12),
+            "fitted_head": check_head_near_zero(fitted_head(len(head.classes)), "a fitted head without ties")}
+    SVMHead.calls = calls
     head_timing = {"ms_per_call": head_ms, "host_ms_per_call": host_ms, "bound_ms": head_bound,
-                   "classes": len(head.classes), "pairs": len(head.pairs), "support_vectors": n_sv}
+                   "classes": len(head.classes), "pairs": len(head.pairs), "support_vectors": n_sv, "near_zero": near}
     log(f"  timing [{card}] SVMHead.predict_indices ({len(head.classes)} classes, {len(head.pairs)} pairs, "
-        f"{n_sv} support vectors, float64 torch ops): {head_ms:.4f} ms a call between CUDA events, {host_ms:.4f} ms "
-        f"on the host clock for one call with its fetch; bound {head_bound:.6f} ms ({head_bytes} B once, "
-        f"~{head_flops} operations at the 67 T/s rate)")
+        f"{n_sv} support vectors, float64 torch products over all pairs at once): {head_ms:.4f} ms a call between "
+        f"CUDA events, {host_ms:.4f} ms on the host clock for one call with its fetch; bound {head_bound:.6f} ms "
+        f"({head_bytes} B once, ~{head_flops} operations at the 67 T/s rate)")
     return {"n_blk": 4, "ms": sum(out[4]) / 4, "max_ms": max(out[4]), "unsharded_ms": whole_ms,
             "n_blk_2_ms": sum(out[2]) / 2}, head_timing
+
+
+def settled_rows(head, dec: torch.Tensor, tie: float) -> torch.Tensor:
+    """Rows of ``dec`` whose predicted class no sign of the decisions
+    within ``tie`` of zero could change: the prediction's votes with every
+    such decision against it beat (or, for a later class, equal) every
+    other class's votes with every such decision for it."""
+    pos, neg = (dec > tie).double(), (dec < -tie).double()
+    low = pos @ head.w_pos + neg @ head.w_neg
+    high = low + (1 - pos - neg) @ (head.w_pos + head.w_neg)
+    top = torch.argmax(pos @ head.w_pos + (1 - pos) @ head.w_neg, dim=1)[:, None]
+    low_top = low.gather(1, top)
+    later = torch.arange(low.shape[1])[None, :] > top
+    beats = (low_top > high) | ((low_top == high) & later)
+    beats.scatter_(1, top, True)
+    return beats.all(dim=1)
+
+
+def fitted_head(n_classes, per=5, seed=12):
+    """An rbf head fitted by the port's libsvm solver on seeded
+    hundredth-rounded score rows (own class 0.4-0.6, the rest ~0.05): its
+    support vectors and intercepts are all distinct, so no decision is
+    an exact tie and every near-zero row must predict the same on the
+    card as on the CPU."""
+    from xspect2_tpu_torch.models.svm_head import fit_ovo_svc
+
+    rng = np.random.default_rng(seed)
+    y = np.repeat(np.arange(n_classes), per)
+    x = np.clip(rng.normal(0.05, 0.02, (len(y), n_classes)), 0, 1)
+    x[np.arange(len(y)), y] = rng.uniform(0.4, 0.6, len(y))
+    return fit_ovo_svc(np.round(x, 2), [f"c{v:02d}" for v in y], "rbf", 1.0).cuda()
+
+
+def per_pair_decisions(head, x: torch.Tensor) -> torch.Tensor:
+    """The head's decisions summed pair by pair, as the port did before
+    its batched form and as the JAX head does: class i's segment against
+    ``dual_coef[j - 1]``, class j's against ``dual_coef[i]``, the
+    intercept."""
+    x = x.to(device=head.support_vectors.device, dtype=torch.float64)
+    km = head._kernel_matrix(x)
+    starts = np.concatenate([[0], np.cumsum(head.n_support)])
+    return torch.stack([
+        km[:, starts[i]:starts[i + 1]] @ head.dual_coef[j - 1, starts[i]:starts[i + 1]]
+        + km[:, starts[j]:starts[j + 1]] @ head.dual_coef[i, starts[j]:starts[j + 1]] + head.intercept[p]
+        for p, (i, j) in enumerate(head.pairs)
+    ], dim=1)
+
+
+def vote(head, dec: torch.Tensor) -> torch.Tensor:
+    pos = (dec > 0).double()
+    return torch.argmax(pos @ head.w_pos + (1 - pos) @ head.w_neg, dim=1)
+
+
+def tie_flips(head, cpu, rows: np.ndarray) -> dict:
+    """On every drawn row, near zero or not: how many predict otherwise
+    on the card than on the CPU, for the batched head and for the
+    per-pair sum; and batched against per-pair on the CPU.  Rows that
+    differ can only be those with a decision within rounding of zero."""
+    x = torch.from_numpy(rows)
+    batched = cpu.predict_indices(x), head.predict_indices(x.cuda()).cpu()
+    pairwise = vote(cpu, per_pair_decisions(cpu, x)), vote(head, per_pair_decisions(head, x.cuda())).cpu()
+    return {"batched_card_vs_cpu": int((batched[0] != batched[1]).sum()),
+            "per_pair_card_vs_cpu": int((pairwise[0] != pairwise[1]).sum()),
+            "batched_vs_per_pair_cpu": int((batched[0] != pairwise[0]).sum())}
+
+
+def check_head_near_zero(head, what, tie=None, want=100, chunk=10_000, max_chunks=40, seed=11):
+    """The head on the card against the same head rebuilt on the CPU from
+    its fitted parameters, on hundredth-rounded float32 rows with a
+    decision below 2e-5 from zero on the CPU, where a reordered sum could
+    flip a vote: half of each chunk uniform scores, half drawn between two
+    support vectors.  Decisions within 1e-12 of the CPU's, predictions
+    equal, on at least ``want`` such rows (up to 2,000 are held).  With
+    ``tie`` None every such row is held.  A head with exact ties (the
+    smoke's main path head: equal scores of two classes tie their pair)
+    passes a ``tie``: its sign is rounding noise on either device, so rows
+    whose prediction a decision within ``tie`` of zero could change are
+    counted and left out, and the rest must have a decision between
+    ``tie`` and 2e-5."""
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+
+    cpu = SVMHead(
+        head.support_vectors.cpu().numpy(), head.dual_coef.cpu().numpy(), head.intercept.cpu().numpy(),
+        head.n_support, head.classes, head.kernel, head.gamma, head.degree, head.coef0,
+    )
+    rng = np.random.default_rng(seed)
+    sv = cpu.support_vectors.numpy()
+    f32 = np.float32
+    near, drawn, unsettled, flips = [], 0, 0, None
+    while sum(map(len, near)) < want and drawn < chunk * max_chunks:
+        half = chunk // 2
+        a, b = sv[rng.integers(0, len(sv), half)], sv[rng.integers(0, len(sv), half)]
+        t = rng.random((half, 1))
+        rows = np.concatenate([
+            rng.integers(0, 101, (half, sv.shape[1])).astype(f32) * f32(0.01),
+            np.rint(100 * (t * a + (1 - t) * b)).astype(f32) * f32(0.01),
+        ])
+        dec = cpu.decision_values(torch.from_numpy(rows))
+        mag = dec.abs()
+        if tie is None:
+            keep = (mag < 2e-5).any(dim=1)
+        else:
+            close = ((mag > tie) & (mag < 2e-5)).any(dim=1)
+            settled = settled_rows(cpu, dec, tie)
+            unsettled += int((close & ~settled).sum())
+            keep = close & settled
+        near.append(rows[keep.numpy()])
+        flips = flips or tie_flips(head, cpu, rows)
+        drawn += chunk
+    rows = np.concatenate(near)[:2000]
+    require(len(rows) >= want, f"SVM head ({what}): only {len(rows)} near-zero rows in {drawn} drawn")
+    want_dec = cpu.decision_values(torch.from_numpy(rows))
+    got_dec = head.decision_values(torch.from_numpy(rows).cuda()).cpu()
+    err = float((got_dec - want_dec).abs().max())
+    same = bool(torch.equal(head.predict_indices(torch.from_numpy(rows).cuda()).cpu(),
+                            cpu.predict_indices(torch.from_numpy(rows))))
+    require(err < 1e-12 and same, f"SVM head ({what}) on the card: decisions off by {err} or predictions differ "
+            "from the CPU's on near-zero rows")
+    mag = want_dec.abs()
+    smallest = float(mag.min() if tie is None else mag[mag > tie].min())
+    left_out = "none left out" if tie is None else (
+        f"{unsettled} more left out: a tie within {tie:g} could change their prediction")
+    log(f"  SVM head near zero, {what} ({len(head.classes)} classes, {int(sv.shape[0])} support vectors): "
+        f"{len(rows)} rows of {drawn} drawn with a decision below 2e-5 (smallest {smallest:.3e}; {left_out}); "
+        f"the card's decisions within {err:.3e} of the CPU's, predictions equal on every row; of the first "
+        f"{chunk} drawn, predictions that differ: {json.dumps(flips)}")
+    return {"rows": len(rows), "drawn": drawn, "left_out": unsettled, "smallest": smallest, "max_abs_err": err,
+            "first_chunk_flips": flips}
 
 
 def run_nccl_world_of_one(asm, card):

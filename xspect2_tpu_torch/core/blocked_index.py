@@ -34,6 +34,7 @@ packages build the same geometry from the same inputs.
 
 import json
 import math
+import os
 from pathlib import Path
 
 import numpy as np
@@ -41,7 +42,8 @@ import numpy as np
 from xspect2_tpu_torch.core import hashing
 
 # table bytes below which the JAX package's probe-count picker assumes
-# the fast gather regime; kept so both packages pick the same geometry
+# the fast gather regime; kept so both packages pick the same geometry.
+# ``XSPECT_FAST_TABLE_BYTES`` overrides it, read at every call, as there.
 FAST_TABLE_BYTES = 108_000_000
 
 
@@ -83,7 +85,7 @@ def pick_num_hashes(
     num_classes: int,
     target_block_bytes: int = 512,
     size_factor: float = 1.3,
-    budget_bytes: int = FAST_TABLE_BYTES,
+    budget_bytes: int | None = None,
     fields_per_word: int | None = None,
 ) -> int:
     """The JAX package's probe-count choice, reproduced exactly.
@@ -92,8 +94,12 @@ def pick_num_hashes(
     JAX package's accelerator; it is kept unchanged so that an index
     built here has the geometry the JAX package would build (the
     8-class 4 Mbp species geometry picks h=2).  The constants say
-    nothing about this port's kernels.
+    nothing about this port's kernels.  ``budget_bytes=None`` reads
+    ``XSPECT_FAST_TABLE_BYTES`` at call time (default
+    :data:`FAST_TABLE_BYTES`), as the JAX package does.
     """
+    if budget_bytes is None:
+        budget_bytes = int(os.environ.get("XSPECT_FAST_TABLE_BYTES", FAST_TABLE_BYTES))
     class_words = max(1, (num_classes + 31) // 32)
     if fields_per_word is None:
         fields_per_word = (

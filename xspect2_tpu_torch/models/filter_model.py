@@ -232,7 +232,10 @@ class ProbabilisticFilterModel:
     ) -> ModelResult | None:
         """The uniform-reads route: a file of at least 512 records of one
         length, parsed natively into one [N, L] matrix.  Returns None for
-        any other file, which then takes the records route."""
+        any other file, or when the native library is not available (as
+        the JAX package does), and the file then takes the records route."""
+        if not native.available():
+            return None
         codes, offsets, ids = native.parse_file(path)
         n = len(ids)
         if n < _MIN_FAST_READS:

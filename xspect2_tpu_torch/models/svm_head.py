@@ -6,7 +6,10 @@ predicts with sklearn in float64.  The port does not depend on sklearn:
 out in numpy, and :class:`SVMHead` carries the fitted parameters onto
 the device and reproduces libsvm's one-vs-one voting in float64.  The
 head's matrix products are plain ``torch.matmul``: it is a few small
-dense products and has no kernel of its own.
+dense products and has no kernel of its own.  Every class pair's
+decision comes out of the same two products over a coefficient matrix
+per side of the pair (:class:`SVMHead`), so a call makes the same few
+launches however many pairs there are.
 """
 
 import math
@@ -277,6 +280,14 @@ class SVMHead(nn.Module):
     decision value votes for i if positive, else for j; the predicted
     class is the first one with the most votes (libsvm's tie rule).
     ``SVMHead.calls`` counts the predictions made, over all heads.
+
+    The pair (i, j) at column p sums class i's support vectors against
+    ``dual_coef[j - 1]`` and class j's against ``dual_coef[i]``.  The
+    float64 buffer ``coef`` ([n_sv, n_pairs]) holds those coefficients in
+    column p, in the rows of class i's and class j's segment, and zeros
+    elsewhere, so that the decisions of every pair are
+    ``km @ coef + intercept``, one accumulator over both segments as
+    libsvm sums them: a zero coefficient adds an exact zero.
     """
 
     calls = 0
@@ -316,6 +327,12 @@ class SVMHead(nn.Module):
         self.register_buffer("w_pos", w_pos)
         self.register_buffer("w_neg", w_neg)
         self.pairs = pairs
+        dual = np.asarray(dual_coef, dtype=np.float64)
+        owner = np.repeat(np.arange(n_classes), self.n_support)[:, None]  # each SV's class
+        first = np.array([i for i, _ in pairs], dtype=np.int64)
+        second = np.array([j for _, j in pairs], dtype=np.int64)
+        coef = np.where(owner == first, dual[second - 1].T, np.where(owner == second, dual[first].T, 0.0))
+        self.register_buffer("coef", torch.as_tensor(coef, dtype=f64))
 
     @classmethod
     def from_sklearn(cls, svc) -> "SVMHead":
@@ -346,18 +363,7 @@ class SVMHead(nn.Module):
         """OvO decision values [n_samples, n_pairs] in libsvm pair order."""
         x = torch.as_tensor(x, dtype=torch.float64, device=self.support_vectors.device)
         km = self._kernel_matrix(x)
-        starts = np.concatenate([[0], np.cumsum(self.n_support)])
-        decisions = []
-        for p, (i, j) in enumerate(self.pairs):
-            si, ei = starts[i], starts[i + 1]
-            sj, ej = starts[j], starts[j + 1]
-            d = (
-                km[:, si:ei] @ self.dual_coef[j - 1, si:ei]
-                + km[:, sj:ej] @ self.dual_coef[i, sj:ej]
-                + self.intercept[p]
-            )
-            decisions.append(d)
-        return torch.stack(decisions, dim=1)
+        return km @ self.coef + self.intercept
 
     def predict_indices(self, x) -> torch.Tensor:
         """Predicted class indices (into ``classes``) per sample, as a

@@ -73,11 +73,17 @@ def _build():
 
 
 def _load():
-    """The library, built on first use; None when it cannot be built."""
+    """The library, built on first use; None when it cannot be built or
+    when ``XSPECT_NO_NATIVE`` is set before first use, as in the JAX
+    package (a library already loaded is returned first)."""
     global _lib
-    if _lib is None and not _LIB_PATH.exists() and not _build_attempted:
+    if _lib is not None:
+        return _lib
+    if os.environ.get("XSPECT_NO_NATIVE"):
+        return None
+    if not _LIB_PATH.exists() and not _build_attempted:
         _build()
-    if _lib is None and _LIB_PATH.exists():
+    if _LIB_PATH.exists():
         _lib = _try_open(_LIB_PATH)
     return _lib
 

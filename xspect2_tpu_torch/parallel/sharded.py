@@ -18,6 +18,16 @@ of those coordinates and the collectives are a thin layer over it
 (``_complete_reads``, ``_complete_step``), so one process can evaluate
 every shard of a mesh in turn.  The counterpart of the JAX package's
 ``xspect2_tpu/parallel/sharded.py``.
+
+One deliberate divergence: the head.  The JAX step evaluates its SVM
+head in float32 (``xspect2_tpu/parallel/sharded.py:220``, whose head
+casts its parameters and inputs to float32 in
+``models/svm_head.py:53-55,83``).  That answer depends on the batch
+shape it is given and, on a TPU, on XLA's matmul precision, so a
+decision within ~2e-5 of zero can take either sign.  The port's step
+keeps the float64 :class:`SVMHead`, whose answer is sklearn's float64
+``SVC.predict``: the one both packages' unsharded ``svm_model.predict``
+returns.
 """
 
 import math
@@ -238,7 +248,10 @@ class ShardedClassifier:
         """File-level scores and the prediction from the hits summed over
         every record and the k-mer count: ``(float32 [C_pad], index)``.
         The scores are computed in float32 and fed to the SVM head (or to
-        ``argmax`` without one) over the index's real classes."""
+        ``argmax`` without one) over the index's real classes.  The head
+        decides in float64, as sklearn's ``SVC.predict`` and the
+        unsharded models do; the JAX step's float32 head can differ from
+        it on a decision within ~2e-5 of zero (see the module docstring)."""
         total_scores = _round2(total_hits.float() / total_kmers.clamp(min=1).float())
         num_classes = self.index.num_classes
         if self.svm_head is not None:
