@@ -51,7 +51,18 @@ width:
   single engine's counts exactly; then both classifiers run through
   their public methods on a 1x1 mesh with NCCL at world size 1;
 - the probe-select microbenchmark
-  (``xspect2_tpu_torch.tools.microbench_probe``) at its default shape (K8).
+  (``xspect2_tpu_torch.tools.microbench_probe``) at its default shape (K8);
+- the shipped product path: the port's ``tools/demo_e2e.py`` on the card
+  with 4 Mbp genomes and 200,000 reads (``models train directory --meta``:
+  K4, K3; ``all``: K1, K2 in the genus filter and the species step); then,
+  each held byte for byte against the same step with ``--device cpu``:
+  ``all``, ``filter genus`` and ``filter species`` on 6,000 of its reads,
+  ``models train mlst`` and ``models train ncbi`` from a loopback mock of
+  PubMLST and NCBI (K4, K3), ``all`` with its MLST step on contigs of the
+  demo's 470 genome (K4, K5, K6), ``pipelines.train_pangenome`` and
+  ``grid_search_model``, and ``classify species`` with
+  ``XSPECT_NO_NATIVE=1`` in a subprocess (K4, K3 instead of K1, K2, with
+  the reads/s of both routes); no connection may leave 127.0.0.1.
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -69,13 +80,15 @@ when any phase fails.  Everything it writes goes to
 """
 
 import argparse
+import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -113,6 +126,21 @@ META_ASSEMBLIES = 2
 # xxh3 genus: assemblies and reads classified through the compat model
 XXH3_ASSEMBLIES = 2
 XXH3_READS = 100_000
+# product path: the port's tools/demo_e2e.py at the species headline's
+# genome size (bench.py geometry), then the CLI's other commands and the
+# pipelines, each against the same command on the CPU
+DEMO_GENOME_MB = 4.0
+DEMO_READS = 200_000
+PRODUCT_PARITY_READS = 6_000
+PRODUCT_LOCI = 7
+PRODUCT_ALLELES = 100
+PRODUCT_CONTIG_LEN = 100_000
+PANGENOME_GENERA = ("Alphus", "Betus")
+PANGENOME_SPECIES = 3
+PANGENOME_GENOME_LEN = 300_000
+PRODUCT_SEED = 12
+PRODUCT_UUID = (re.compile(r"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}"),
+                re.compile(rb"[0-9a-f]{8}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{4}-[0-9a-f]{12}"))
 # kernel wrapper -> (source, the TPU program it replaces)
 KERNELS = {
     "unpack_2bit": ("xspect2_tpu_torch/csrc/unpack_2bit.cu", "xspect2_tpu/ops/query.py:751"),
@@ -2987,6 +3015,522 @@ def run_microbench(card, errors):
     }, k2
 
 
+# ---------------------------------------------------------------- phase 10
+
+
+def cli_run(args, device, root):
+    """``args`` through the port's click CLI in this process, with the root
+    ``--device`` and the data root ``root``; the CLI module is reloaded
+    first, as its model choices are read from the registry at import."""
+    import importlib
+    import traceback
+
+    from click.testing import CliRunner
+
+    import xspect2_tpu_torch.main as main_mod
+
+    os.environ["XSPECT_DATA_ROOT"] = str(root)
+    cli = importlib.reload(main_mod).cli
+    r = CliRunner().invoke(cli, ["--device", device, *[str(a) for a in args]])
+    require(r.exit_code == 0, f"CLI {' '.join(map(str, args))} (--device {device}): exit {r.exit_code}\n{r.output[-2000:]}"
+            + ("".join(traceback.format_exception(*r.exc_info)) if r.exc_info else ""))
+    return r.output
+
+
+def tree_files(root: Path, uuids: bool = False) -> dict:
+    """{relative path: bytes} of every file under ``root``; with ``uuids``
+    each uuid4 in a path or a file (``all`` draws one a run) is replaced."""
+    text, raw = PRODUCT_UUID
+    out = {}
+    for p in sorted(root.rglob("*")):
+        if p.is_file():
+            rel, data = str(p.relative_to(root)), p.read_bytes()
+            out[text.sub("<uuid>", rel) if uuids else rel] = raw.sub(b"<uuid>", data) if uuids else data
+    return out
+
+
+def require_same_tree(got: Path, want: Path, what: str, uuids: bool = False) -> int:
+    """Both trees hold the same files, byte for byte; returns the file count."""
+    a, b = tree_files(got, uuids), tree_files(want, uuids)
+    require(a and sorted(a) == sorted(b), f"{what}: the files differ: {sorted(a)} against {sorted(b)}")
+    differ = [rel for rel in a if a[rel] != b[rel]]
+    require(not differ, f"{what}: the card's files differ from the CPU's: {differ}")
+    return len(a)
+
+
+def require_kernels(launches: dict, names, what: str, absent=()) -> None:
+    """Each kernel of ``names`` launched, none of ``absent``."""
+    require(all(launches[n] > 0 for n in names) and all(launches[n] == 0 for n in absent),
+            f"{what}: launches {launches} miss one of {list(names)} or include one of {list(absent)}")
+
+
+def delta(before: dict, after: dict) -> dict:
+    return {name: after[name] - before[name] for name in KERNELS}
+
+
+@contextmanager
+def step_probes(record: dict, *targets):
+    """Wrap each (module, function name) so that its calls' seconds and
+    kernel launches add up in ``record[name]``; the CLI looks these
+    functions up on their modules when it runs, so its steps are timed.
+    Each step ends with its results on the host (a JSON or FASTA file)."""
+    saved = []
+    for module, name in targets:
+        fn = getattr(module, name)
+
+        def probe(*args, _fn=fn, _name=name, **kwargs):
+            before, t0 = read_launches(), time.time()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                entry = record.setdefault(_name, {"calls": 0, "s": 0.0, "launches": {n: 0 for n in KERNELS}})
+                entry["calls"] += 1
+                entry["s"] += time.time() - t0
+                add_launches(entry["launches"], delta(before, read_launches()))
+
+        setattr(module, name, probe)
+        saved.append((module, name, fn))
+    try:
+        yield record
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+@contextmanager
+def loopback_only(blocked: list):
+    """Within: no name but localhost resolves (no DNS query is sent) and no
+    socket connects to an address other than 127.0.0.1 or ::1; each attempt
+    is refused and appended to ``blocked``."""
+    import socket
+
+    real_getaddrinfo, real_connect = socket.getaddrinfo, socket.socket.connect
+    local = ("localhost", "127.0.0.1", "::1", b"localhost", b"127.0.0.1", b"::1", None)
+
+    def getaddrinfo(host, *args, **kwargs):
+        if host not in local:
+            blocked.append(f"resolve {host!r}")
+            raise socket.gaierror(socket.EAI_NONAME, f"{host!r} is not resolved: the smoke stays on this machine")
+        return real_getaddrinfo(host, *args, **kwargs)
+
+    def connect(self, address):
+        if self.family in (socket.AF_INET, socket.AF_INET6) and address[0] not in local:
+            blocked.append(f"connect {address!r}")
+            raise OSError(f"connect to {address!r} refused: the smoke stays on this machine")
+        return real_connect(self, address)
+
+    socket.getaddrinfo, socket.socket.connect = getaddrinfo, connect
+    try:
+        yield blocked
+    finally:
+        socket.getaddrinfo, socket.socket.connect = real_getaddrinfo, real_connect
+
+
+@contextmanager
+def requests_state(available: bool):
+    """Within: ``requests`` importable (``available``), or not, together with
+    the port's handler modules that hold it, so that the MLST ST-name
+    lookup fails at its import and yields the offline name (as in phase
+    7).  The modules' state before is restored after."""
+    def held():
+        return [m for m in sys.modules if m == "requests" or m.startswith("xspect2_tpu_torch.handlers.")]
+
+    saved = {m: sys.modules[m] for m in held()}
+    for m in held():
+        del sys.modules[m]
+    if not available:
+        sys.modules["requests"] = None
+    try:
+        yield
+    finally:
+        for m in held():
+            del sys.modules[m]
+        sys.modules.update(saved)
+
+
+def run_demo(base: Path, card: str):
+    """(a) The port's ``tools/demo_e2e.py`` on the card at the species
+    headline's genome size: ``models train directory --meta`` (K4 + K3 for
+    the SVM scoring), then ``all`` on the read file (K1 + K2 in the genus
+    filter and in the species step).  Returns its kept directory and the
+    seconds of the demo, of ``all`` (the demo's clock) and of each step."""
+    import tempfile
+
+    from xspect2_tpu_torch import classify, filter_sequences, train
+    from xspect2_tpu_torch.tools import demo_e2e
+
+    class Tee(io.StringIO):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return super().write(text)
+
+    steps, printed = {}, Tee()
+    (base / "demo").mkdir(parents=True)
+    saved_tempdir, tempfile.tempdir = tempfile.tempdir, str(base / "demo")
+    t0 = time.time()
+    try:
+        with step_probes(steps, (train, "train_from_directory"), (filter_sequences, "filter_genus"),
+                         (classify, "classify_species"), (classify, "classify_mlst")), redirect_stdout(printed):
+            demo = demo_e2e.main(["--genome-mb", str(DEMO_GENOME_MB), "--reads", str(DEMO_READS), "--keep",
+                                  "--device", "cuda"])
+    finally:
+        tempfile.tempdir = saved_tempdir
+    total = time.time() - t0
+    # the demo's own clock around each CLI command
+    all_s = float(re.search(r"^  all in ([0-9.]+) s$", printed.getvalue(), re.MULTILINE).group(1))
+    (species_json,) = (demo / "out").glob("species_classification_*.json")
+    prediction = json.loads(species_json.read_text(encoding="utf-8"))["prediction"]
+    require(prediction == "470", f"the demo predicted {prediction!r}, not 470")
+    require_kernels(steps["train_from_directory"]["launches"], ("records_wire", "records_query"),
+                    "the demo's training (the SVM scoring)")
+    for name in ("filter_genus", "classify_species"):
+        require(steps[name]["calls"] == 1, f"the demo's all ran {name} {steps[name]['calls']} times")
+        require_kernels(steps[name]["launches"], ("unpack_2bit", "reads_query"), f"the demo's all ({name})",
+                        absent=("records_wire", "records_query"))
+    require("classify_mlst" not in steps, "the demo ran MLST without an abaumannii scheme")
+    log(f"  (a) demo [{card}]: {DEMO_GENOME_MB} Mbp genomes, {DEMO_READS} reads, exit 0, species prediction "
+        f"{prediction}, whole demo {total:.2f} s; training {steps['train_from_directory']['s']:.2f} s, all "
+        f"{all_s:.2f} s ({DEMO_READS / all_s:.0f} reads/s): genus filter {steps['filter_genus']['s']:.2f} s, species "
+        f"step {steps['classify_species']['s']:.2f} s; launches "
+        + json.dumps({k: {n: v for n, v in e['launches'].items() if v} for k, e in steps.items()}))
+    return demo, dict(demo_s=total, all_s=all_s, **{k: e["s"] for k, e in steps.items()})
+
+
+def read_subset(sample: Path, out: Path, starts) -> int:
+    """PRODUCT_PARITY_READS / len(starts) reads from each start, in file order."""
+    from xspect2_tpu_torch.io.fasta import parse_fasta
+    from xspect2_tpu_torch.io.fasta import write_fasta as write_records
+
+    per = PRODUCT_PARITY_READS // len(starts)
+    records = list(parse_fasta(sample))
+    picked = [r for s in starts for r in records[s : s + per]]
+    write_records(picked, out)
+    return len(picked)
+
+
+def run_card_and_cpu(base: Path, demo: Path, card: str):
+    """(b) The demo's registry and 6,000 of its reads (the first 2,000 of
+    each source, 470, 471 and off-genus noise): ``all``, ``filter genus`` and
+    ``filter species`` (``-t -1`` and ``-t 0.5``) through the CLI with
+    ``--device cuda`` and with ``--device cpu``, in this process (the model
+    cache holds both devices' models); every output directory must be
+    byte-identical.  Returns the subset's path."""
+    subset = base / "subset.fasta"
+    n = read_subset(demo / "sample.fasta", subset, (0, DEMO_READS // 2, DEMO_READS // 2 + DEMO_READS // 3))
+    commands = {
+        "all": ["all", "-g", "Testus", "-i", subset, "-o", "{out}", "-t", "0.5"],
+        "filter genus": ["filter", "genus", "-g", "Testus", "-i", subset, "-o", "{out}/genus_filtered.fasta",
+                         "--classification-output-path", "{out}/genus.json", "-t", "0.5"],
+        "filter species 470 -t -1": ["filter", "species", "-g", "Testus", "-s", "470", "-i", subset,
+                                 "-o", "{out}/species_filtered.fasta", "--classification-output-path",
+                                 "{out}/species.json", "-t", "-1"],
+        "filter species 471 -t 0.5": ["filter", "species", "-g", "Testus", "-s", "471", "-i", subset,
+                                  "-o", "{out}/species_filtered.fasta", "--classification-output-path",
+                                  "{out}/species.json", "-t", "0.5"],
+    }
+    for c, (what, args) in enumerate(commands.items()):
+        outs, seconds = {}, {}
+        for device in ("cuda", "cpu"):
+            outs[device] = base / f"b{c}_{device}"
+            outs[device].mkdir()
+            before, t0 = read_launches(), time.time()
+            cli_run([str(a).replace("{out}", str(outs[device])) for a in args], device, demo)
+            seconds[device] = time.time() - t0
+            got = delta(before, read_launches())
+            if device == "cuda":
+                require_kernels(got, ("unpack_2bit", "reads_query"), f"(b) {what} on the card",
+                                absent=("records_wire", "records_query"))
+                cuda_launches = got
+            else:
+                require(not any(got.values()), f"(b) {what} on the CPU launched {got}")
+        files = require_same_tree(outs["cuda"], outs["cpu"], f"(b) {what}", uuids=(what == "all"))
+        log(f"  (b) {what} [{card}]: {n} reads, card {seconds['cuda']:.2f} s (launches "
+            f"{ {k: v for k, v in cuda_launches.items() if v} }), CPU {seconds['cpu']:.2f} s; {files} files "
+            f"byte-identical")
+    return subset
+
+
+def mlst_scheme(scheme_dir: Path, genome: str, rng) -> None:
+    """PRODUCT_LOCI loci of PRODUCT_ALLELES alleles of ALLELE_LEN bp:
+    allele 1 of each locus is cut from ``genome`` (one locus every
+    PRODUCT_CONTIG_LEN bases, so that each contig of the c2 sample holds
+    one), the others are random."""
+    for li in range(PRODUCT_LOCI):
+        at = li * PRODUCT_CONTIG_LEN + PRODUCT_CONTIG_LEN // 2
+        locus = scheme_dir / f"Oxf_gene{li}"
+        locus.mkdir(parents=True)
+        seqs = [genome[at : at + ALLELE_LEN]] + [
+            seq_str(rng.integers(0, 4, size=ALLELE_LEN, dtype=np.uint8)) for _ in range(PRODUCT_ALLELES - 1)]
+        for a, seq in enumerate(seqs):
+            (locus / f"Allele_ID_{a + 1}.fasta").write_text(f">Oxf_gene{li}_{a + 1}\n{seq}\n", encoding="utf-8")
+
+
+def mock_services():
+    """``tests/mock_services.py`` (the standard library and numpy only: a
+    mock of NCBI Datasets and PubMLST on 127.0.0.1), loaded from its file:
+    a ``tests`` package elsewhere on the path may hide this one."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("xspect_mock_services", ROOT / "tests" / "mock_services.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_mlst_product(base: Path, demo: Path, rng, card: str):
+    """(c1) ``models train mlst`` for the mock PubMLST's ``testorg`` scheme
+    on the card and on the CPU: the model files must be byte-identical.
+    (c2) An ``abaumannii`` scheme registered in the demo's registry from
+    local allele files (allele 1 of each locus cut from the demo's 470
+    genome), then ``all`` on contigs of that genome: the species step
+    predicts 470, so step 3 runs ``classify_mlst`` (K4 + K5 + K6); the
+    outputs on the card and on the CPU must be byte-identical."""
+    from xspect2_tpu_torch import classify
+    from xspect2_tpu_torch.definitions import get_xspect_model_path
+    from xspect2_tpu_torch.io.fasta import SeqRecord, parse_fasta
+    from xspect2_tpu_torch.io.fasta import write_fasta as write_records
+    from xspect2_tpu_torch.models.mlst_model import ProbabilisticFilterMlstSchemeModel
+
+    services = mock_services()
+    with requests_state(available=True), services.MockServices() as mock:
+        os.environ["XSPECT_PUBMLST_URL"] = f"{mock.url}/db"
+        seconds = {}
+        for device in ("cuda", "cpu"):
+            before, t0 = read_launches(), time.time()
+            cli_run(["models", "train", "mlst", "--organism", services.MLST_ORGANISM,
+                     "--mlst-scheme", services.MLST_SCHEME], device, base / f"c1_{device}")
+            seconds[device] = time.time() - t0
+            require(not any(delta(before, read_launches()).values()), "(c1) MLST training launched a kernel")
+        served = len(mock.server.requests)
+    files = require_same_tree(base / "c1_cuda" / "models", base / "c1_cpu" / "models", "(c1) train mlst")
+    require(served > 0, "(c1) the mock PubMLST served no request")
+    log(f"  (c1) models train mlst [{card}]: {services.MLST_ORGANISM} {services.MLST_SCHEME!r} from the loopback "
+        f"mock ({served} requests), card {seconds['cuda']:.2f} s, CPU {seconds['cpu']:.2f} s; {files} model files "
+        f"byte-identical")
+
+    os.environ["XSPECT_DATA_ROOT"] = str(demo)
+    (genome,) = [r.seq for r in parse_fasta(demo / "train" / "cobs" / "470" / "470.fasta")]
+    mlst_scheme(base / "abaumannii", genome, rng)
+    t0 = time.time()
+    model = ProbabilisticFilterMlstSchemeModel(
+        MLST_K, "Oxford", get_xspect_model_path(), "http://127.0.0.1:9/db/pubmlst_abaumannii_seqdef/schemes/1",
+        "abaumannii", device="cuda")
+    model.fit(base / "abaumannii")
+    model.save()
+    fit_s = time.time() - t0
+    del model
+    sample = base / "c2_sample.fasta"
+    write_records([SeqRecord(genome[c * PRODUCT_CONTIG_LEN : (c + 1) * PRODUCT_CONTIG_LEN], f"contig{c}")
+                   for c in range(PRODUCT_LOCI)], sample)
+    steps, seconds = {}, {}
+    with requests_state(available=False), step_probes(steps, (classify, "classify_mlst")):
+        for device in ("cuda", "cpu"):
+            before, t0 = read_launches(), time.time()
+            cli_run(["all", "-g", "Testus", "-i", sample, "-o", base / f"c2_{device}", "-t", "0.5"], device, demo)
+            seconds[device] = time.time() - t0
+            if device == "cuda":
+                got = delta(before, read_launches())
+                require(steps.get("classify_mlst", {}).get("calls") == 1, "(c2) all did not run classify_mlst")
+                require_kernels(steps["classify_mlst"]["launches"],
+                                ("records_wire", "multi_records_query", "reduce_record_counts"),
+                                "(c2) all's MLST step on the card")
+    files = require_same_tree(base / "c2_cuda", base / "c2_cpu", "(c2) all with MLST", uuids=True)
+    (mlst_json,) = (base / "c2_cuda").glob("mlst_classification_*.json")
+    res = json.loads(mlst_json.read_text(encoding="utf-8"))["Results"]
+    for li in range(PRODUCT_LOCI):
+        strain = res[f"contig{li}"][0]["Strain type"]
+        require(next(iter(strain[f"Oxf_gene{li}"])) == "Allele_ID_1", f"(c2) contig{li} misses allele 1 of its locus")
+    st_name = res["contig0"][0]["Strain type"]["ST_Name"]
+    require(str(st_name).startswith("N/A (PubMLST lookup failed:"), f"(c2) ST_Name {st_name!r}")
+    log(f"  (c2) all with MLST step 3 [{card}]: scheme of {PRODUCT_LOCI} loci x {PRODUCT_ALLELES} alleles fitted in "
+        f"{fit_s:.2f} s; {PRODUCT_LOCI} contigs of {PRODUCT_CONTIG_LEN} bp of the 470 genome, card "
+        f"{seconds['cuda']:.2f} s "
+        f"(classify_mlst {steps['classify_mlst']['s']:.2f} s over both devices; launches "
+        f"{ {k: v for k, v in got.items() if v} }), CPU {seconds['cpu']:.2f} s; {files} files byte-identical; every "
+        f"contig calls allele 1 of its locus; ST_Name {st_name!r}")
+
+
+def run_ncbi_product(base: Path, card: str):
+    """(d) ``models train ncbi -g Testus`` through the loopback mock NCBI on
+    the card and on the CPU (the SVM scoring: K4 + K3): the model files
+    must be byte-identical."""
+    seconds = {}
+    with requests_state(available=True), mock_services().MockServices() as mock:
+        os.environ["XSPECT_NCBI_URL"] = mock.url
+        for device in ("cuda", "cpu"):
+            before, t0 = read_launches(), time.time()
+            cli_run(["models", "train", "ncbi", "-g", "Testus"], device, base / f"d_{device}")
+            seconds[device] = time.time() - t0
+            if device == "cuda":
+                got = delta(before, read_launches())
+                require_kernels(got, ("records_wire", "records_query"), "(d) train ncbi on the card")
+        served = len(mock.server.requests)
+    os.environ["XSPECT_NCBI_URL"] = "http://127.0.0.1:1"
+    files = require_same_tree(base / "d_cuda" / "models", base / "d_cpu" / "models", "(d) train ncbi")
+    log(f"  (d) models train ncbi [{card}]: Testus from the loopback mock ({served} requests), card "
+        f"{seconds['cuda']:.2f} s (launches { {k: v for k, v in got.items() if v} }), CPU {seconds['cpu']:.2f} s; "
+        f"{files} model files byte-identical")
+
+
+def run_pangenome_product(base: Path, rng, card: str):
+    """(e) ``pipelines.train_pangenome`` over two genera in the
+    ``train_from_directory`` layout, then ``grid_search_model`` on one
+    trained species model's ``scores.csv``, on the card and on the CPU:
+    model files byte-identical, results equal."""
+    from xspect2_tpu_torch import pipelines
+    from xspect2_tpu_torch.model_management import get_species_model_path
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.models.svm_model import ProbabilisticFilterSVMModel
+    from xspect2_tpu_torch.pipelines.score_svm import grid_search_model
+
+    layout = base / "pangenome"
+    for genus in PANGENOME_GENERA:
+        for s in range(PANGENOME_SPECIES):
+            label = f"{genus}{s}"
+            codes = rng.integers(0, 4, size=PANGENOME_GENOME_LEN, dtype=np.uint8)
+            for sub in ("cobs", "svm"):
+                (layout / genus / sub / label).mkdir(parents=True)
+            write_fasta(layout / genus / "cobs" / label / f"{label}.fasta", [(label, codes)])
+            for i in range(2):
+                noisy = codes.copy()
+                at = rng.integers(0, len(noisy), size=len(noisy) // 100)
+                noisy[at] = rng.integers(0, 4, size=len(at), dtype=np.uint8)
+                write_fasta(layout / genus / "svm" / label / f"{label}_svm{i}.fasta", [(f"{label}_svm{i}", noisy)])
+    results, grids, seconds = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        os.environ["XSPECT_DATA_ROOT"] = str(base / f"e_{device}")
+        before, t0 = read_launches(), time.time()
+        results[device] = pipelines.train_pangenome(list(PANGENOME_GENERA), data_root=layout, device=device)
+        train_s = time.time() - t0
+        if device == "cuda":
+            got = delta(before, read_launches())
+            require_kernels(got, ("records_wire", "records_query"), "(e) train_pangenome on the card")
+        model = ProbabilisticFilterSVMModel.load(get_species_model_path(PANGENOME_GENERA[0]), device=device)
+        calls, t0 = SVMHead.calls, time.time()
+        grids[device] = grid_search_model(model, device=device)
+        seconds[device] = (train_s, time.time() - t0, SVMHead.calls - calls)
+        del model
+    require(results["cuda"] == results["cpu"] == {g: "ok" for g in PANGENOME_GENERA},
+            f"(e) train_pangenome results: card {results['cuda']}, CPU {results['cpu']}")
+    files = require_same_tree(base / "e_cuda" / "models", base / "e_cpu" / "models", "(e) train_pangenome")
+    require(grids["cuda"] == grids["cpu"], f"(e) grid_search_model: card {grids['cuda']}, CPU {grids['cpu']}")
+    log(f"  (e) train_pangenome [{card}]: {len(PANGENOME_GENERA)} genera x {PANGENOME_SPECIES} species of "
+        f"{PANGENOME_GENOME_LEN} bp, card {seconds['cuda'][0]:.2f} s (launches "
+        f"{ {k: v for k, v in got.items() if v} }), CPU {seconds['cpu'][0]:.2f} s; {files} model files "
+        f"byte-identical; grid_search_model ({seconds['cuda'][2]} head predictions) card {seconds['cuda'][1]:.2f} s, "
+        f"CPU {seconds['cpu'][1]:.2f} s, equal: best {grids['cuda'][0]}")
+
+
+# a subprocess that runs CLI commands (a JSON list of argument lists) in
+# turn and prints, for each, its seconds and the launches of the records
+# and reads kernels
+CLI_PROBE = """
+import json, sys, time
+from xspect2_tpu_torch import main
+from xspect2_tpu_torch.ops import query
+names = ("unpack_2bit", "reads_query", "records_wire", "records_query")
+out = []
+for args in json.loads(sys.argv[1]):
+    before = {n: getattr(query, n).launches for n in names}
+    t0 = time.perf_counter()
+    main.cli.main(args, standalone_mode=False)
+    out.append({"s": time.perf_counter() - t0,
+                "launches": {n: getattr(query, n).launches - before[n] for n in names}})
+print(json.dumps(out))
+"""
+
+
+def cli_probe(commands, demo: Path, no_native: bool) -> list:
+    env = {**os.environ, "XSPECT_DATA_ROOT": str(demo), "XSPECT_NCBI_URL": "http://127.0.0.1:1",
+           "XSPECT_PUBMLST_URL": "http://127.0.0.1:1"}
+    env.pop("XSPECT_NO_NATIVE", None)
+    if no_native:
+        env["XSPECT_NO_NATIVE"] = "1"
+    proc = subprocess.run([sys.executable, "-c", CLI_PROBE, json.dumps([[str(a) for a in c] for c in commands])],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=900, check=False)
+    require(proc.returncode == 0, f"(f) CLI subprocess failed ({proc.returncode}): {proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run_no_native(base: Path, demo: Path, subset: Path, card: str):
+    """(f) ``classify species`` in subprocesses with ``XSPECT_NO_NATIVE=1``
+    (read at the native library's first load): on the card the uniform
+    150 bp subset takes K4 + K3, not K1 + K2, and its JSON equals the
+    CPU's byte for byte and the native route's; the demo's whole sample
+    through both routes on the card, twice each, gives their reads/s."""
+    def species(device, path, out):
+        return ["--device", device, "classify", "species", "-g", "Testus", "-i", path, "-o", base / out]
+
+    sample = demo / "sample.fasta"
+    reps = [species("cuda", sample, f"f_rate_{r}.json") for r in range(2)]
+    t0 = time.time()
+    off = cli_probe([species("cuda", subset, "f_off_cuda.json"), *reps], demo, no_native=True)
+    off_cpu = cli_probe([species("cpu", subset, "f_off_cpu.json")], demo, no_native=True)
+    on = cli_probe([species("cuda", subset, "f_on_cuda.json"), *reps], demo, no_native=False)
+    wall = time.time() - t0
+    for run in off:
+        require_kernels(run["launches"], ("records_wire", "records_query"), "(f) XSPECT_NO_NATIVE on the card",
+                        absent=("unpack_2bit", "reads_query"))
+    for run in on:
+        require_kernels(run["launches"], ("unpack_2bit", "reads_query"), "(f) the native route on the card",
+                        absent=("records_wire", "records_query"))
+    off_json = (base / "f_off_cuda.json").read_bytes()
+    require(off_json == (base / "f_off_cpu.json").read_bytes(),
+            "(f) XSPECT_NO_NATIVE: the card's JSON differs from the CPU's")
+    require(off_json == (base / "f_on_cuda.json").read_bytes(),
+            "(f) the records route's JSON differs from the reads route's")
+    require(not any(off_cpu[0]["launches"].values()), f"(f) the CPU's subprocess launched {off_cpu[0]['launches']}")
+    launches = {n: 0 for n in KERNELS}
+    for run in off + on:
+        add_launches(launches, run["launches"])
+    rates = {"no_native": DEMO_READS / off[2]["s"], "native": DEMO_READS / on[2]["s"]}
+    log(f"  (f) XSPECT_NO_NATIVE [{card}]: {PRODUCT_PARITY_READS} reads on the card take K4 + K3 "
+        f"({off[0]['launches']}), JSON equal "
+        f"to the CPU's and to the native route's (K1 + K2, {on[0]['launches']}); {DEMO_READS} reads, second call: "
+        f"records route {off[2]['s']:.2f} s, {rates['no_native']:.0f} reads/s (first {off[1]['s']:.2f} s); reads route "
+        f"{on[2]['s']:.2f} s, {rates['native']:.0f} reads/s (first {on[1]['s']:.2f} s); three subprocesses "
+        f"{wall:.1f} s")
+    return launches, rates
+
+
+def run_product(card: str):
+    """Phase 10, the shipped product path on the card, (a)-(f); every step
+    of (b)-(f) is held against the same step with ``--device cpu``.
+    Returns (the launches of every step on the card, the seconds and
+    rates logged)."""
+    from xspect2_tpu_torch import model_cache
+
+    base = WORK / "product"
+    rng = np.random.default_rng(PRODUCT_SEED)
+    saved_env = {k: os.environ.get(k) for k in ("XSPECT_DATA_ROOT", "XSPECT_NCBI_URL", "XSPECT_PUBMLST_URL")}
+    model_cache.clear()
+    blocked = []
+    reset_launches()
+    t0 = time.time()
+    try:
+        with loopback_only(blocked):
+            demo, demo_times = run_demo(base, card)
+            subset = run_card_and_cpu(base, demo, card)
+            run_mlst_product(base, demo, rng, card)
+            run_ncbi_product(base, card)
+            run_pangenome_product(base, rng, card)
+        launches = read_launches()
+        f_launches, rates = run_no_native(base, demo, subset, card)
+        add_launches(launches, f_launches)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        model_cache.clear()
+    require(not blocked, f"the product phase tried to leave this machine: {blocked}")
+    summary = dict(demo_times, **{f"{k}_reads_per_s": round(v, 1) for k, v in rates.items()}, phase_s=time.time() - t0)
+    log(f"  product [{card}]: {json.dumps(summary)}; launches {json.dumps(launches)}; no connection left 127.0.0.1")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches, summary
+
+
 
 # ---------------------------------------------------------------- main
 
@@ -3075,6 +3619,11 @@ def main() -> int:
     log("phase 9: the probe-select microbenchmark at its default shape")
     p_launches, p_timings, k2_microbench = run_microbench(card, errors)
 
+    log(f"phase 10: the shipped product path: the demo (tools/demo_e2e.py, {DEMO_GENOME_MB} Mbp genomes, {DEMO_READS} "
+        f"reads), the CLI's all, filter, train mlst and train ncbi, the pangenome training and the grid search, and "
+        f"XSPECT_NO_NATIVE, each against the same step on the CPU")
+    product_launches, product = run_product(card)
+
     all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings}
     all_timings["reads_query"]["block_sharded"] = k2_sharded
     # K2 over its launches of the run at their own shapes (species, genus,
@@ -3093,7 +3642,7 @@ def main() -> int:
     for name in ("records_wire", "records_query"):
         all_timings[name]["validation"] = val_timings[name]
     all_launches = (sp_launches, rb_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
-                    mlst_launches, x_launches, p_launches)
+                    mlst_launches, x_launches, p_launches, product_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -3105,6 +3654,7 @@ def main() -> int:
 
     log(f"svm head [{card}]: {json.dumps(dict(head_timing, calls=SVMHead.calls))} (calls: every prediction of the run)")
     log(f"validation [{card}]: {json.dumps(val_e2e)}")
+    log(f"product [{card}]: {json.dumps(product)}")
     log(f"device busy share [{card}]: {rb_busy['busy_share']:.6f} over the traced read benchmark "
         f"({rb_busy['window_ms']:.3f} ms window, {rb_busy['kernel_busy_ms']:.3f} ms in kernels)")
     log(
@@ -3114,7 +3664,8 @@ def main() -> int:
         f"assembly benchmark and the web app's task, "
         f"the sharded classifiers' public methods at NCCL world size 1, the validated and the plain run "
         f"of the validation reads, classify_mlst and the three MLST predict runs, the xxh3 genus "
-        f"assemblies and reads with the filter's count API, the microbenchmark); unpack_2bit and reads_query "
+        f"assemblies and reads with the filter's count API, the microbenchmark, the product path's card steps); "
+        f"unpack_2bit and reads_query "
         f"timed at the species reads shape, "
         f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
         f"at the same shapes; classes_512: a 512-class table, also on short records and the global-atomic "

@@ -57,3 +57,45 @@ def test_root_device_option_defaults_to_cuda():
     assert "--device" in output and "[default: cuda]" in output
     device = next(p for p in cli.params if p.name == "device")
     assert device.default == "cuda"
+
+
+def _flag_calls(tree):
+    """Every call in ``tree`` with ``is_flag=True`` among its keywords
+    (``click.option(...)`` and the option tables' ``dict(...)``)."""
+    import ast
+
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            kw = {k.arg: k.value for k in node.keywords if k.arg}
+            if isinstance(kw.get("is_flag"), ast.Constant) and kw["is_flag"].value is True:
+                yield node, kw
+
+
+def test_flags_on_by_default_set_true_on_every_click_version():
+    """A flag declared ``default=True`` without ``flag_value`` sets False
+    when given under click < 8.2 (its flag value was ``not default``): under
+    click 8.1.8 ``train directory --meta`` trained no genus model.  Each
+    such flag names ``flag_value=True``."""
+    import ast
+    from pathlib import Path
+
+    import xspect2_tpu_torch.main as port_main
+
+    tree = ast.parse(Path(port_main.__file__).read_text(encoding="utf-8"))
+    on_by_default = [kw for _, kw in _flag_calls(tree)
+                     if isinstance(kw.get("default"), ast.Constant) and kw["default"].value is True]
+    assert on_by_default, "the CLI has no flag that is on by default"
+    for kw in on_by_default:
+        assert isinstance(kw.get("flag_value"), ast.Constant) and kw["flag_value"].value is True
+
+
+@pytest.mark.parametrize("flags", [["--meta"], []], ids=["meta", "default"])
+def test_train_directory_meta_flag_trains_the_genus_model(tmp_path, monkeypatch, flags):
+    import xspect2_tpu_torch.train as port_train
+
+    seen = {}
+    monkeypatch.setattr(port_train, "train_from_directory", lambda *a, **kw: seen.update(kw))
+    result = CliRunner().invoke(
+        cli, ["--device", "cpu", "models", "train", "directory", "-g", "G", "-i", str(tmp_path), *flags])
+    assert result.exit_code == 0, result.output
+    assert seen["meta"] is True

@@ -48,7 +48,7 @@ def test_port_imports_neither_jax_nor_the_jax_package(tmp_path):
         "models.mlst_model", "core.compat", "core.xxh3", "handlers.http", "handlers.pubmlst",
         "filter_sequences", "ops.bloom", "ops.probe_select", "parallel", "parallel.mesh",
         "parallel.distributed", "parallel.sharded", "parallel.block_sharded",
-        "tools.microbench_probe", "train", "handlers.ncbi", "misclassification_detection",
+        "tools.microbench_probe", "tools.demo_e2e", "train", "handlers.ncbi", "misclassification_detection",
         "misclassification_detection.mapping", "misclassification_detection.point_pattern_analysis",
         "misclassification_detection.simulate_reads", "reference_import", "download_models",
         "main", "web", "webui", "profiling", "pipelines", "pipelines.benchmark",
@@ -91,7 +91,7 @@ def test_port_sources_name_no_jax_import():
     assert {
         "mlst_model.py", "compat.py", "xxh3.py", "http.py", "pubmlst.py", "bloom.py", "mesh.py",
         "distributed.py", "sharded.py", "block_sharded.py", "probe_select.py", "microbench_probe.py",
-        "train.py", "ncbi.py", "mapping.py", "point_pattern_analysis.py", "simulate_reads.py",
+        "demo_e2e.py", "train.py", "ncbi.py", "mapping.py", "point_pattern_analysis.py", "simulate_reads.py",
         "reference_import.py", "download_models.py", "main.py", "web.py", "webui.py", "profiling.py",
         "benchmark.py", "pangenome.py", "score_svm.py",
     } <= {p.name for p in sources}

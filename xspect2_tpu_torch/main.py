@@ -458,6 +458,7 @@ def train_ncbi(
 @click.option(
     "--meta",
     is_flag=True,
+    flag_value=True,  # click < 8.2 would set "not default" when it is given
     help="Train a metagenome model for the genus.",
     default=True,
 )
