@@ -62,7 +62,17 @@ width:
   demo's 470 genome (K4, K5, K6), ``pipelines.train_pangenome`` and
   ``grid_search_model``, and ``classify species`` with
   ``XSPECT_NO_NATIVE=1`` in a subprocess (K4, K3 instead of K1, K2, with
-  the reads/s of both routes); no connection may leave 127.0.0.1.
+  the reads/s of both routes); no connection may leave 127.0.0.1;
+- the card's memory regimes and the layout picker's constants: the
+  fused row gather (K9) against its plain version, then the port's
+  ``tools/recalibrate_constants.py`` at its defaults and at a scan across
+  the 50 MB L2 (K9; K1 and K2 in its engine A/B), the gather grid, sorted
+  gather and split tools (K9), the block-shard tool on the 40-class table
+  (K2 and its owned-block mode; the shards' counts must sum to the whole
+  table's), the fields tool (K2, K9), and ``pick_num_hashes`` under the
+  printed budgets for every geometry above, with the species genomes
+  fitted once more under the scan's budget and K2 timed at both indices
+  on the species reads.
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -152,6 +162,7 @@ KERNELS = {
     "bloom_count": ("xspect2_tpu_torch/csrc/bloom_count.cu", "xspect2_tpu/core/compat.py:205"),
     "xxh3_records_count": ("xspect2_tpu_torch/csrc/xxh3_bloom.cu", "xspect2_tpu/core/compat.py:205"),
     "probe_select": ("xspect2_tpu_torch/csrc/probe_select.cu", "tools/microbench_pallas.py:74"),
+    "row_gather": ("xspect2_tpu_torch/csrc/row_gather.cu", "tools/recalibrate_constants.py:50"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
 # random HBM read, and the 32-bit non-tensor rate, above which the
@@ -304,9 +315,10 @@ def card_line(card: str) -> str:
 
 def wrapper(name: str):
     """The kernel wrapper ``name``, which carries the launch count."""
-    from xspect2_tpu_torch.ops import bloom, probe_select, query
+    from xspect2_tpu_torch.ops import bloom, probe_select, query, row_gather
 
-    module = {"bloom_count": bloom, "xxh3_records_count": bloom, "probe_select": probe_select}.get(name, query)
+    module = {"bloom_count": bloom, "xxh3_records_count": bloom, "probe_select": probe_select,
+              "row_gather": row_gather}.get(name, query)
     return getattr(module, name)
 
 
@@ -3532,6 +3544,183 @@ def run_product(card: str):
 
 
 
+# ---------------------------------------------------------------- phase 11
+
+# K9's timed shape: 2**21 indices of 512 B rows (the production block row)
+# on a 200 MB table, the shape recalibrate_constants scans at
+CALIBRATION_N = 1 << 21
+CALIBRATION_TABLE_MB = 200
+# the second gather scan of recalibrate_constants, across the 50 MB L2
+FINE_SIZES_MB = "8,16,24,32,40,48,56,64,80,100,150,200,400"
+# the index geometries the smoke drives (PERF.md section 4): (name, classes, bp a class)
+SMOKE_GEOMETRIES = (
+    ("species reads 8 x 4 Mbp", 8, 4_000_000),
+    ("genus reads 1 x 32 Mbp", 1, 32_000_000),
+    ("records species 40 x 4 Mbp", 40, 4_000_000),
+    ("metagenome genus 1 x 160 Mbp", 1, 160_000_000),
+    ("demo species 3 x 4 Mbp", 3, 4_000_000),
+    ("pangenome species 3 x 0.3 Mbp", 3, 300_000),
+)
+
+
+def check_row_gather(card, errors):
+    """11a: K9 in its three modes equals its plain version at 512 B and 4 KB
+    rows, the window clipping on both sides; then K9 at 2**21 indices of
+    512 B rows on a 200 MB table: time, bound, plain time, and the library
+    form (``index_select`` then ``sum``, which writes and reads back the
+    whole gather)."""
+    from xspect2_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+    from xspect2_tpu_torch.tools._synthetic import random_table
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(3)
+    for row_bytes, n in ((512, CALIBRATION_N), (4096, CALIBRATION_N // 8)):
+        rows = int(CALIBRATION_TABLE_MB * 1e6 / row_bytes)
+        table = random_table(rng, rows, row_bytes // 4, dev)
+        idx = torch.from_numpy(rng.integers(0, rows, size=n, dtype=np.int32)).to(dev)
+        lo, hi = rows // 3, rows // 3 + rows // 4
+        for mode, window, t in (("total", None, table), ("per_row", None, table),
+                                ("window", (lo, hi - lo), table[lo:hi])):
+            got = row_gather(t, idx, mode, window)
+            want = row_gather_plain(t, idx, mode, window)
+            err = int((got.long() - want.long()).abs().max())
+            errors["row_gather"] = max(errors["row_gather"], err)
+            log(f"  row_gather vs plain: {row_bytes} B rows, {rows} rows, n={n}, {mode}"
+                f"{'' if window is None else f' {window}'}: max |err| {err}")
+            del got, want
+        del table, idx
+    require(errors["row_gather"] == 0, "row_gather disagrees with its plain version")
+
+    n = CALIBRATION_N
+    rows = int(CALIBRATION_TABLE_MB * 1e6 / 512)
+    table = random_table(rng, rows, 128, dev)
+    idx = torch.from_numpy(rng.integers(0, rows, size=n, dtype=np.int32)).to(dev)
+    k9 = timed(lambda: row_gather(table, idx), 20)
+    plain = cuda_ms(lambda: row_gather_plain(table, idx), 2)
+    library = cuda_ms(lambda: table.index_select(0, idx).sum(), 5)
+    # each row that the indices name read once, each index once, the sum
+    # written once; a row named again may come from the L2
+    touched = int(torch.unique(idx).numel())
+    nbytes = touched * 512 + 4 * n + 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    every_ms = (n * 512 + 4 * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * 128 / INT_OPS_PER_S * 1e3  # one add a word
+    log(f"  timing [{card}] row_gather ({n} indices of 512 B rows, a {CALIBRATION_TABLE_MB} MB table): {ms_text(k9)}, "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: {touched} distinct rows of {rows} and the "
+        f"indices, {nbytes} B once; operations {ops_ms:.4f}; every gathered row from memory, n x 512 B + 4n, "
+        f"{every_ms:.4f}), plain {plain:.4f} ms, index_select + sum {library:.4f} ms")
+    return dict(k9, plain_ms=plain, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library)
+
+
+def picker_part(card, budgets, genomes, reads, species_idx, launches):
+    """11f: ``pick_num_hashes`` under the card's budgets for every geometry
+    the smoke drives, beside the shipped choice; the phase-3 genomes fitted
+    once more under the scan's budget, and K2 device-only at the picked h
+    beside the shipped h on the same reads, both held against the host."""
+    from xspect2_tpu_torch import native
+    from xspect2_tpu_torch.core.blocked_index import FAST_TABLE_BYTES, BlockedBitSlicedIndex, pick_num_hashes
+    from xspect2_tpu_torch.models.filter_model import _READS_PER_CHUNK
+    from xspect2_tpu_torch.ops import query
+
+    budgets = {"shipped": FAST_TABLE_BYTES, **budgets}
+    for name, classes, bp in SMOKE_GEOMETRIES:
+        picks = {b: pick_num_hashes(bp - K + 1, 0.01, classes, budget_bytes=v) for b, v in budgets.items()}
+        log(f"  pick_num_hashes [{card}] {name}: " + ", ".join(f"{b} budget {budgets[b]} B -> h={h}"
+                                                              for b, h in picks.items()))
+    budget = budgets["scan across the L2"]
+    h = pick_num_hashes(GENOME_LEN - K + 1, 0.01, 8, budget_bytes=budget)
+    t0 = time.time()
+    idx = BlockedBitSlicedIndex.create(K, species_idx.class_names, GENOME_LEN - K + 1, fpr=0.01, num_hashes=h)
+    for ci in range(idx.num_classes):
+        native.insert_kmers(idx, ci, genomes[ci])
+    log(f"  the species genomes fitted under the budget {budget} B: h={h} P={idx.fields_per_word}, "
+        f"{idx.nbytes / 1e6:.1f} MB ({time.time() - t0:.1f} s); shipped h={species_idx.num_hashes}, "
+        f"{species_idx.nbytes / 1e6:.1f} MB")
+    if h == species_idx.num_hashes:
+        require(np.array_equal(idx.table, species_idx.table), "the same probe count fitted another table")
+    sample = np.random.default_rng(11).choice(len(reads), size=SAMPLE, replace=False)
+    reset_launches()
+    times = {}
+    for label, ix in ((f"shipped h={species_idx.num_hashes}", species_idx), (f"picked h={h}", idx)):
+        engine = query.DeviceQueryEngine(ix, device="cuda")
+        codes = query.unpack_2bit(*engine.upload_wire(reads, _READS_PER_CHUNK), READ_LEN)
+        geom = dict(step=1, **engine.geometry())
+        out = query.reads_query(codes, engine.table, **geom)
+        require(np.array_equal(out[sample].cpu().numpy().astype(np.int64), host_counts(ix, reads[sample])),
+                f"K2 at the {label} index differs from the host reference")
+        dev, by = device_ms(lambda: query.reads_query(codes, engine.table, **geom), 10)
+        times[label] = dev
+        log(f"  timing [{card}] reads_query at the {label} index ({ix.nbytes / 1e6:.1f} MB), {len(reads)} reads: "
+            f"{dev:.4f} ms device-only ({by}); {SAMPLE} sampled reads equal the host reference")
+        del engine, codes, out
+    got = read_launches()
+    add_launches(launches, got)
+    require(got["unpack_2bit"] > 0 and got["reads_query"] > 0, "the picker's A/B did not launch K1 and K2")
+    return times
+
+
+def run_calibration(card, genomes, reads, species_idx):
+    """11b-11f: the port's recalibrate_constants twice (its defaults, and a
+    scan across the L2), the gather grid, sorted gather and split at their
+    defaults, the block-shard tool on the 40-class geometry, the fields
+    tool, and what the card's budget would pick.  Each part's launches are
+    read after it and must include its kernels.  Returns (the launches,
+    the constants and rates logged)."""
+    from xspect2_tpu_torch.tools import (
+        microbench_blockshard,
+        microbench_fields,
+        microbench_gather,
+        microbench_sorted_gather,
+        microbench_split,
+        recalibrate_constants,
+    )
+
+    launches = {name: 0 for name in KERNELS}
+    seconds = {}
+
+    def part(label, fn, kernels):
+        reset_launches()
+        t0 = time.time()
+        out = fn()
+        got = read_launches()
+        seconds[label] = round(time.time() - t0, 2)
+        add_launches(launches, got)
+        log(f"  {label} [{card}]: {seconds[label]:.1f} s, launches {json.dumps({k: v for k, v in got.items() if v})}")
+        require(all(got[k] > 0 for k in kernels), f"{label} did not launch {kernels}: {got}")
+        return out
+
+    engine_kernels = ("row_gather", "unpack_2bit", "reads_query")
+    consts = {}
+    for label, sizes in (("defaults", None), ("scan across the L2", FINE_SIZES_MB)):
+        kwargs = {} if sizes is None else {"sizes_mb": [float(s) for s in sizes.split(",")]}
+        res = part(f"recalibrate_constants ({label})", lambda: recalibrate_constants.run(**kwargs), engine_kernels)
+        consts[label] = {k: res[k] for k in ("body_ns", "fast_ns", "slow_ns", "budget_bytes", "t2", "t7", "cliff")}
+        log(f"  constants [{card}] ({label}, the sizes {sizes or 'of the tool'}): {json.dumps(consts[label])}; "
+            f"rates M rows/s {json.dumps({f'{mb:g}': round(r / 1e6, 1) for mb, r in res['rates'].items()})}; "
+            f"engine A/B {json.dumps({h: [round(v, 1) for v in ab] for h, ab in res['ab'].items()})}")
+        log("  the printed block (" + label + "):" + res["block"].replace("\n", "\n    "))
+    part("microbench_gather", microbench_gather.run, ("row_gather",))
+    sorted_res = part("microbench_sorted_gather", microbench_sorted_gather.run, ("row_gather",))
+    require(all(len(set(r["checksums"])) == 1 for r in sorted_res["rows"]),
+            "random, sorted and pipelined gathers disagree")
+    part("microbench_split", microbench_split.run, ("row_gather",))
+    shard = part("microbench_blockshard", microbench_blockshard.run, ("reads_query",))
+    require(all(shard["tiles_equal"].values()),
+            f"the block shards' owned-block counts do not sum to the whole table's: {shard['tiles_equal']}")
+    log(f"  block shards: the owned-block counts of the n_blk windows sum to the whole table's exactly "
+        f"({shard['num_blocks']} blocks, {shard['nbytes'] / 1e6:.1f} MB)")
+    part("microbench_fields", microbench_fields.run, ("reads_query", "row_gather"))
+    t0 = time.time()
+    k2_times = picker_part(card, {k: v["budget_bytes"] for k, v in consts.items()}, genomes, reads, species_idx,
+                           launches)
+    seconds["picker"] = round(time.time() - t0, 2)
+    summary = dict(constants=consts, k2_device_ms=k2_times, seconds=seconds)
+    log(f"  calibration [{card}]: {json.dumps(summary)}")
+    return launches, summary
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3578,7 +3767,6 @@ def main() -> int:
     timings = time_kernels(species_idx, sp_reads, card, errors)
     log("phase 3b: species reads on (data x blk) meshes, every shard in turn on this card")
     k2_sharded = run_sharded_reads("species", species_idx, sp_reads, card, errors)
-    del sp_reads
 
     log("phase 4: genus reads and genus assemblies, 1 class x 32 Mbp")
     genus_genome = rng.integers(0, 4, size=(1, 32_000_000), dtype=np.uint8)
@@ -3593,7 +3781,6 @@ def main() -> int:
 
     log("phase 5: SVM species head on reads")
     check_svm(species_idx, genomes, rng)
-    del genomes, species_idx
 
     log("phase 6: records, 40-class x 4 Mbp SVM species model and the 160 Mbp metagenome genus model through "
         "train_from_directory, then 20 assemblies at steps 1 and 4")
@@ -3624,7 +3811,16 @@ def main() -> int:
         f"XSPECT_NO_NATIVE, each against the same step on the CPU")
     product_launches, product = run_product(card)
 
-    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings}
+    log("phase 11: the card's memory regimes and the picker's constants: K9 against its plain version, "
+        "recalibrate_constants at its defaults and across the L2, the gather grid, sorted gather, split, "
+        "block shards (40 x 4 Mbp), fields, and what the card's budget would pick")
+    t11 = time.time()
+    k9_timing = check_row_gather(card, errors)
+    cal_launches, calibration = run_calibration(card, genomes, sp_reads, species_idx)
+    log(f"phase 11 [{card}]: {time.time() - t11:.1f} s")
+    del genomes, species_idx, sp_reads
+
+    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings, "row_gather": k9_timing}
     all_timings["reads_query"]["block_sharded"] = k2_sharded
     # K2 over its launches of the run at their own shapes (species, genus,
     # the NCCL runs, the microbenchmark): time less bound, summed
@@ -3642,7 +3838,7 @@ def main() -> int:
     for name in ("records_wire", "records_query"):
         all_timings[name]["validation"] = val_timings[name]
     all_launches = (sp_launches, rb_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
-                    mlst_launches, x_launches, p_launches, product_launches)
+                    mlst_launches, x_launches, p_launches, product_launches, cal_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -3655,6 +3851,7 @@ def main() -> int:
     log(f"svm head [{card}]: {json.dumps(dict(head_timing, calls=SVMHead.calls))} (calls: every prediction of the run)")
     log(f"validation [{card}]: {json.dumps(val_e2e)}")
     log(f"product [{card}]: {json.dumps(product)}")
+    log(f"calibration [{card}]: {json.dumps(calibration)}")
     log(f"device busy share [{card}]: {rb_busy['busy_share']:.6f} over the traced read benchmark "
         f"({rb_busy['window_ms']:.3f} ms window, {rb_busy['kernel_busy_ms']:.3f} ms in kernels)")
     log(
@@ -3671,7 +3868,8 @@ def main() -> int:
         f"at the same shapes; classes_512: a 512-class table, also on short records and the global-atomic "
         f"path; validation: the first batch of the validated reads), multi_records_query and reduce_record_counts at one group of 4 genomes, "
         f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
-        f"chunk of 8,192 reads; "
+        f"chunk of 8,192 reads, row_gather at {CALIBRATION_N} indices of 512 B rows on a {CALIBRATION_TABLE_MB} MB "
+        f"table; "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

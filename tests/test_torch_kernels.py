@@ -660,6 +660,35 @@ def test_microbench_probe_pipeline_equals_reads_query_on_the_card(cuda_device, c
     assert probe_select.launches == before + 2 * 4  # a warm-up and one timed pass of 4 chunks
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_words", [4, 32, 40, 128, 1024])
+@pytest.mark.parametrize("n", [1, 13, 70_001])
+def test_row_gather_kernel_matches_plain(cuda_device, row_words, n):
+    """K9 in its three modes equals its plain version exactly: rows of one
+    16 B vector to 4 KB (a width that is no power of two among them),
+    indices at both ends and out of range (clamped), a window that clips
+    on both sides, sums that wrap mod 2**32."""
+    from xspect2_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+
+    rng = np.random.default_rng(row_words * 7 + n)
+    rows = 3001
+    table = torch.from_numpy(
+        rng.integers(0, 2**32, size=(rows, row_words), dtype=np.uint32).view(np.int32)).to(cuda_device)
+    idx = rng.integers(0, rows, size=n, dtype=np.int32)
+    idx[: min(n, 4)] = [0, rows - 1, -3, rows + 5][: min(n, 4)]
+    idx = torch.from_numpy(idx).to(cuda_device)
+    for mode, window, t in (("total", None, table), ("per_row", None, table),
+                            ("window", (1000, 700), table[1000:1700]), ("window", (0, rows), table)):
+        before = row_gather.launches
+        got = row_gather(t, idx, mode=mode, window=window)
+        assert row_gather.launches == before + 1
+        want = row_gather_plain(t, idx, mode=mode, window=window)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="aligned"):
+        row_gather(table.view(-1)[1 : 1 + 8 * row_words].view(8, row_words), idx)
+
+
 # ------------------------------------------------------------------ the row-major layout
 
 

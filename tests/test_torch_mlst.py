@@ -19,17 +19,13 @@ import torch
 
 from tests.conftest import random_dna
 from tests.test_torch_query import _genomes, _jax_index
-from xspect2_tpu import classify as jax_classify
-from xspect2_tpu import model_cache as jax_model_cache
 from xspect2_tpu.io.fasta import SeqRecord as JaxSeqRecord
 from xspect2_tpu.io.fasta import write_fasta
 from xspect2_tpu.models import mlst_model as jax_mlst
 from xspect2_tpu.ops import query as jax_query
-from xspect2_tpu_torch import classify, convert, model_cache
+from xspect2_tpu_torch import convert
 from xspect2_tpu_torch.core import dna
-from xspect2_tpu_torch.io.fasta import SeqRecord
 from xspect2_tpu_torch.models import mlst_model as port_mlst
-from xspect2_tpu_torch.models.result import MlstResult
 from xspect2_tpu_torch.ops import query
 
 K = 31
@@ -279,125 +275,12 @@ def test_calculate_hits_matches_jax(scheme, no_lookup, name, limit):
         assert all(len(v) <= 5 for v in got[1]["All results"].values())
 
 
-@pytest.mark.parametrize("batch_genomes", [1, 3, None])
-def test_predict_iterator_matches_jax_and_per_genome(scheme, no_lookup, batch_genomes, monkeypatch):
-    """A mixed stream (long, short, long): groups flush when the split
-    status changes; every batch size gives the per-genome results."""
-    _, alleles, jax_model, model = scheme
-    monkeypatch.delenv("XSPECT_MLST_BATCH_GENOMES", raising=False)
-    seqs, _ = _inputs(alleles)
-    got = model.predict((SeqRecord(s, id=i) for i, s in seqs.items()), batch_genomes=batch_genomes)
-    want = jax_model.predict((JaxSeqRecord(s, id=i) for i, s in seqs.items()), batch_genomes=batch_genomes)
-    assert isinstance(got, MlstResult)
-    assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
-    assert got.hits == {i: model.calculate_hits(s) for i, s in seqs.items()}
-
-
-def test_predict_record_path_and_limit_match_jax(scheme, no_lookup, tmp_path):
-    _, alleles, jax_model, model = scheme
-    seqs, _ = _inputs(alleles)
-    got = model.predict(SeqRecord(seqs["long0"]), limit=True)
-    want = jax_model.predict(JaxSeqRecord(seqs["long0"]), limit=True)
-    assert list(got.hits) == ["test"]  # "<unknown id>" becomes "test"
-    assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
-    fasta = tmp_path / "mixed.fasta"
-    write_fasta([JaxSeqRecord(s, id=i) for i, s in seqs.items()], fasta)
-    for limit in (False, True):
-        got = model.predict(fasta, limit=limit, batch_genomes=2)
-        want = jax_model.predict(fasta, limit=limit, batch_genomes=2)
-        assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
-    with pytest.raises(ValueError, match="SeqRecord, a record iterator"):
-        model.predict(17)
-
-
-def test_classify_mlst_writes_the_jax_json(scheme, no_lookup, tmp_path, monkeypatch):
-    root, alleles, _, _ = scheme
-    seqs, _ = _inputs(alleles)
-    fasta = tmp_path / "genomes.fasta"
-    write_fasta([JaxSeqRecord(s, id=i) for i, s in seqs.items()], fasta)
-    monkeypatch.setattr("xspect2_tpu.model_management.get_mlst_model_path",
-                        lambda organism, scheme: root / "jax" / "abaumannii-oxford-mlst.json")
-    monkeypatch.setattr("xspect2_tpu_torch.model_management.get_mlst_model_path",
-                        lambda organism, scheme: root / "port" / "abaumannii-oxford-mlst.json")
-    jax_model_cache.clear()
-    model_cache.clear()
-    try:
-        for limit in (False, True):
-            jax_classify.classify_mlst(fasta, "abaumannii", "Oxford", tmp_path / "jax.json", limit)
-            classify.classify_mlst(fasta, "abaumannii", "Oxford", tmp_path / "port.json", limit, device="cpu")
-            assert (tmp_path / "port.json").read_bytes() == (tmp_path / "jax.json").read_bytes()
-        assert json.loads((tmp_path / "port.json").read_text())["Input_source"] == "genomes.fasta"
-    finally:
-        jax_model_cache.clear()
-        model_cache.clear()
-
-
 def test_mlst_model_path_is_the_jax_path(data_root):
     from xspect2_tpu.model_management import get_mlst_model_path as jax_path
     from xspect2_tpu_torch.model_management import get_mlst_model_path
 
     assert get_mlst_model_path("A. baumannii", "Oxford") == jax_path("A. baumannii", "Oxford")
     assert get_mlst_model_path("a", "b").name == "a-b-mlst.json"
-
-
-def test_loci_share_one_prepared_batch(scheme, monkeypatch):
-    """Loci of one allele length share ONE prepared batch, one packed
-    wire and ONE multi-index query: two queries for the three loci of
-    the scheme, not three, and the fetch is [C] or [B, C] per locus."""
-    _, alleles, _, model = scheme
-    calls = []
-    real = query.multi_records_query
-
-    def spy(tables, geoms, *args, **kwargs):
-        calls.append(len(tables))
-        return real(tables, geoms, *args, **kwargs)
-
-    monkeypatch.setattr(query, "multi_records_query", spy)
-    rng = np.random.default_rng(3)
-    genome = random_dna(rng, 30_000)
-    dispatched = model._dispatch_loci(genome, step=1)
-    assert sorted(calls) == [1, 2]  # the 450 bp loci together, the 300 bp locus alone
-    assert [tuple(o.shape) for o, _ in dispatched] == [(4,), (40,), (6,)]
-    calls.clear()
-    grouped = model._dispatch_loci_group([genome, random_dna(rng, 12_000)], step=1)
-    assert sorted(calls) == [1, 2]
-    assert [tuple(o.shape) for o, _ in grouped] == [(2, 4), (2, 40), (2, 6)]
-
-    # one batch queried through two engines uploads its wire once
-    pieces = model.sequence_splitter(genome, 450)
-    records = [(f"p{i}", dna.encode(p)) for i, p in enumerate(pieces)]
-    batch = query.prepare_batch(records, K, chunk=model.engines[0].chunk)
-    assert batch._device_wire == {}
-    model.engines[0].count_hits(batch, block=False)
-    assert len(batch._device_wire) == 1
-    wire_before = next(iter(batch._device_wire.values()))
-    out1 = model.engines[1].count_hits(batch, block=False)
-    assert next(iter(batch._device_wire.values())) is wire_before
-    fresh = query.prepare_batch(records, K, chunk=model.engines[1].chunk)
-    np.testing.assert_array_equal(
-        out1.numpy()[: batch.num_records].astype(np.int64), model.engines[1].count_hits(fresh))
-
-
-def test_device_reduction_matches_host_reduction(scheme):
-    """The on-device reduction is the host rule it replaces: per-piece
-    counts <= 50 zeroed, then summed (split path); raw counts of the one
-    piece (short path)."""
-    _, alleles, _, model = scheme
-    rng = np.random.default_rng(8)
-    genome = _genome(rng, alleles, 30_000)[0]
-    reduced = model._fetch_counts(model._dispatch_loci(genome, step=1))
-    for li, totals in enumerate(reduced):
-        assert totals.ndim == 1 and totals.dtype == np.int64
-        pieces = model.sequence_splitter(genome, model.avg_locus_bp_size[li])
-        raw = model.engines[li].count_hits_records(
-            [(f"p{i}", dna.encode(p)) for i, p in enumerate(pieces)])
-        want = np.where(raw > port_mlst.CHUNK_SCORE_THRESHOLD, raw, 0).sum(axis=0)
-        np.testing.assert_array_equal(totals, want)
-        assert totals.max() > 200
-    short = random_dna(rng, 900)
-    for li, row in enumerate(model._fetch_counts(model._dispatch_loci(short, step=1))):
-        assert row.ndim == 1
-        np.testing.assert_array_equal(row, model.engines[li].count_hits_records([("p0", dna.encode(short))])[0])
 
 
 def test_mlst_error_cases(scheme, tmp_path):
