@@ -72,7 +72,15 @@ width:
   table's), the fields tool (K2, K9), and ``pick_num_hashes`` under the
   printed budgets for every geometry above, with the species genomes
   fitted once more under the scan's budget and K2 timed at both indices
-  on the species reads.
+  on the species reads;
+- the read query's body formulations and the mesh overhead: the seven
+  body variants (K10) against their plain versions at 1, 2 and 4 class
+  words and h = 1, 3 and 7, the counting ones against K2; the port's
+  ``tools/microbench_body.py`` at its defaults (a 50 MB table) and at
+  100 MB, each variant timed beside its bound and beside K2 on the same
+  table and reads; the port's ``tools/microbench_spmd.py`` (64 classes,
+  32,768 reads: the single engine, then every coordinate of the 4x2 and
+  8x1 (data x cls) meshes in turn, K1 and K2, counts equal).
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -163,6 +171,7 @@ KERNELS = {
     "xxh3_records_count": ("xspect2_tpu_torch/csrc/xxh3_bloom.cu", "xspect2_tpu/core/compat.py:205"),
     "probe_select": ("xspect2_tpu_torch/csrc/probe_select.cu", "tools/microbench_pallas.py:74"),
     "row_gather": ("xspect2_tpu_torch/csrc/row_gather.cu", "tools/recalibrate_constants.py:50"),
+    "body_variants": ("xspect2_tpu_torch/csrc/body_variants.cu", "tools/microbench_body.py:106"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
 # random HBM read, and the 32-bit non-tensor rate, above which the
@@ -315,10 +324,10 @@ def card_line(card: str) -> str:
 
 def wrapper(name: str):
     """The kernel wrapper ``name``, which carries the launch count."""
-    from xspect2_tpu_torch.ops import bloom, probe_select, query, row_gather
+    from xspect2_tpu_torch.ops import bloom, body_variants, probe_select, query, row_gather
 
     module = {"bloom_count": bloom, "xxh3_records_count": bloom, "probe_select": probe_select,
-              "row_gather": row_gather}.get(name, query)
+              "row_gather": row_gather, "body_variants": body_variants}.get(name, query)
     return getattr(module, name)
 
 
@@ -2563,35 +2572,11 @@ def check_sharded_kernels(rng, errors):
     require(errors["probe_select"] == 0, "probe_select disagrees with its plain version")
 
 
-def hand_mesh(axis, n_data, n_model):
-    """A mesh of ``n_data x n_model`` coordinates on this card without
-    process groups: only the per-coordinate steps can run on it."""
-    from xspect2_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
-
-    return Mesh({DATA_AXIS: n_data, axis: n_model}, (0, 0), {DATA_AXIS: None, axis: None}, torch.device("cuda"))
-
-
-def merge_model(clf, parts):
-    """The model-axis collective by hand: concatenate the class axis over
-    ``cls``, sum over ``blk``."""
-    if clf.model_axis == "cls":
-        return torch.cat(parts, dim=-1)
-    return torch.stack(parts).sum(dim=0, dtype=torch.int32)
-
-
-def sharded_reads_by_hand(clf, reads, reads_per_chunk):
-    """Every coordinate's reads step on this card, combined by hand:
-    int32 [rows, C_pad] on the card."""
-    rows = []
-    for d in range(clf.n_data):
-        parts = [clf._local_reads_step((d, m), reads, 1, reads_per_chunk)[0] for m in range(clf.n_model)]
-        rows.append(merge_model(clf, parts))
-    return torch.cat(rows)
-
-
 def sharded_classify_by_hand(clf, records, step=1):
     """Every coordinate's records step on this card, combined by hand,
     then the scores and the head as the step computes them."""
+    from xspect2_tpu_torch.tools.microbench_spmd import merge_model
+
     batches, max_records = clf._shard_batches(records, step)
     full = [
         merge_model(clf, [clf._local_step((d, m), batches[d], max_records) for m in range(clf.n_model)])
@@ -2636,20 +2621,21 @@ def run_sharded_reads(kind, idx, reads, card, errors):
     from xspect2_tpu_torch.models.filter_model import _READS_PER_CHUNK
     from xspect2_tpu_torch.ops import query
     from xspect2_tpu_torch.parallel import BlockShardedClassifier, ShardedClassifier
+    from xspect2_tpu_torch.tools.microbench_spmd import coordinate_mesh, every_coordinate
 
     n = len(reads)
     engine = query.DeviceQueryEngine(idx, device="cuda")
     want = engine.count_hits_reads(reads, reads_per_chunk=_READS_PER_CHUNK, block=False).int()
     try:
-        ShardedClassifier(idx, hand_mesh("cls", 1, 2))
+        ShardedClassifier(idx, coordinate_mesh(1, 2, "cuda", "cls"))
     except ValueError as exc:
         log(f"  {kind}: a cls mesh is refused: {str(exc)[:60]}...")
     else:
         raise SmokeFailure(f"{kind}: a field-packed table was sharded by class words")
     for n_data, n_blk in ((1, 2), (1, 4), (2, 2)):
-        clf = BlockShardedClassifier(idx, hand_mesh("blk", n_data, n_blk))
+        clf = BlockShardedClassifier(idx, coordinate_mesh(n_data, n_blk, "cuda", "blk"))
         t0 = time.time()
-        got = sharded_reads_by_hand(clf, reads, _READS_PER_CHUNK)
+        got = every_coordinate(clf, reads, _READS_PER_CHUNK)
         torch.cuda.synchronize()
         secs = time.time() - t0
         err = int((got[:n] - want[:n]).abs().max())
@@ -2685,6 +2671,7 @@ def run_sharded_records(asm, card, errors):
     from xspect2_tpu_torch.models.svm_head import SVMHead
     from xspect2_tpu_torch.ops import query
     from xspect2_tpu_torch.parallel import BlockShardedClassifier, ShardedClassifier
+    from xspect2_tpu_torch.tools.microbench_spmd import coordinate_mesh, every_coordinate
 
     model, reads, contigs, single = asm["model"], asm["reads"], asm["contigs"], asm["single"]
     idx, engine = model.index, model.engine
@@ -2696,9 +2683,9 @@ def run_sharded_records(asm, card, errors):
     for cls, axis, n_data, n_model in (
         (ShardedClassifier, "cls", 1, 2), (BlockShardedClassifier, "blk", 1, 2), (BlockShardedClassifier, "blk", 1, 4),
     ):
-        clf = cls(idx, hand_mesh(axis, n_data, n_model))
+        clf = cls(idx, coordinate_mesh(n_data, n_model, "cuda", axis))
         t0 = time.time()
-        got = sharded_reads_by_hand(clf, reads, _READS_PER_CHUNK)
+        got = every_coordinate(clf, reads, _READS_PER_CHUNK)
         torch.cuda.synchronize()
         secs = time.time() - t0
         err = int((got[:n, : idx.num_classes] - want[:n]).abs().max())
@@ -2716,7 +2703,7 @@ def run_sharded_records(asm, card, errors):
     del want
 
     for cls, axis in ((BlockShardedClassifier, "blk"), (ShardedClassifier, "cls")):
-        clf = cls(idx, hand_mesh(axis, 2, 2), svm_head=head)
+        clf = cls(idx, coordinate_mesh(2, 2, "cuda", axis), svm_head=head)
         t0 = time.time()
         per_record, totals, prediction = sharded_classify_by_hand(clf, contigs)
         secs = time.time() - t0
@@ -3721,6 +3708,208 @@ def run_calibration(card, genomes, reads, species_idx):
 
 
 
+# ---------------------------------------------------------------- phase 12
+
+# K10's checks: every variant at three class counts (1, 2 and 4 class
+# words) and three probe counts, on reads that end in a partial chunk
+BODY_CHECK_CLASSES = (8, 40, 128)
+BODY_CHECK_HASHES = (1, 3, 7)
+BODY_CHECK_READS = 3_000
+BODY_CHECK_CHUNK = 1_024
+BODY_CHECK_TABLE_MB = 4
+# microbench_body's table at its default and at the species headline's size
+BODY_TABLE_MB = (50.0, 100.0)
+# microbench_spmd: calls a timed window (about a second of the single
+# engine's 32,768 reads) and windows, the single engine and each mesh in turn
+SPMD_ITERS = 100
+SPMD_REPEATS = 5
+
+
+def body_ops(variant: str, num_hashes: int, num_classes: int, class_words: int) -> int:
+    """Estimated integer operations a k-mer of a K10 variant needs, counted
+    from the function and not from a formulation: the pack and hash
+    (WINDOW_OPS), h for the row mask, then 3 a block word for the AND of
+    the selected rows (bit test, select, AND, as K8's bound counts a
+    word), and 2 a class to count (the counting variants) or an add a
+    class word (noplanes, cwm_noplanes); gatheronly adds each block word
+    and each of the h row ids (2 each with the row's address)."""
+    from xspect2_tpu_torch.ops.body_variants import BLOCK_WORDS, COUNTING
+
+    if variant == "gatheronly":
+        return WINDOW_OPS + BLOCK_WORDS + 2 * num_hashes
+    count = 2 * num_classes if variant in COUNTING else class_words
+    return WINDOW_OPS + num_hashes + 3 * BLOCK_WORDS + count
+
+
+def check_body_variants(card, errors):
+    """12a: K10 against its plain version, each variant at C = 8, 40 and 128
+    and h = 1, 3 and 7, on 3,000 reads in chunks of 1,024 (the last one
+    partial), once as drawn and once with N codes (which pack as 0 and
+    count); the counting variants against K2 on the same row-major table
+    and clean reads.  All exact."""
+    from xspect2_tpu_torch.ops import body_variants as bv
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.tools._synthetic import random_table
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    k2_err = 0
+    for num_classes in BODY_CHECK_CLASSES:
+        class_words, rows_per_block = bv.geometry(num_classes)
+        num_blocks = int(BODY_CHECK_TABLE_MB * 1e6 / (4 * bv.BLOCK_WORDS))
+        table = random_table(rng, num_blocks, bv.BLOCK_WORDS, dev)
+        cwm = bv.class_word_major(table, num_classes)
+        reads = torch.from_numpy(rng.integers(0, 4, size=(BODY_CHECK_READS, READ_LEN), dtype=np.uint8)).to(dev)
+        with_n = reads.clone()
+        rows = torch.from_numpy(rng.integers(0, BODY_CHECK_READS, 300)).to(dev)
+        with_n[rows, torch.from_numpy(rng.integers(0, READ_LEN, 300)).to(dev)] = 255
+        for h in BODY_CHECK_HASHES:
+            k2 = query.reads_query(reads, table, k=K, step=1, num_blocks=num_blocks, rows_per_block=rows_per_block,
+                                   class_words=class_words, num_hashes=h, fields_per_word=1,
+                                   num_classes=num_classes).int()
+            errs = {}
+            for v in bv.VARIANTS:
+                t = cwm if v in bv.CLASS_WORD_MAJOR else table
+                kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=BODY_CHECK_CHUNK)
+                err = 0
+                for r in (reads, with_n):
+                    got = bv.body_variants(v, r, t, **kw)
+                    want = bv.body_variants_plain(v, r, t, **kw)
+                    err = max(err, int((got.long() - want.long()).abs().max()))
+                    if v in bv.COUNTING and r is reads:
+                        k2_err = max(k2_err, int((got - k2).abs().max()))
+                errs[v] = err
+                errors["body_variants"] = max(errors["body_variants"], err)
+            log(f"  body_variants vs plain: C={num_classes} (cw={class_words}, rpb={rows_per_block}) h={h}, "
+                f"{BODY_CHECK_READS} reads in chunks of {BODY_CHECK_CHUNK}, with and without N: max |err| "
+                f"{json.dumps(errs)}; counting variants vs reads_query max |err| {k2_err}, hits {int(k2.sum())}")
+    require(errors["body_variants"] == 0, "body_variants disagrees with its plain version")
+    require(k2_err == 0, "a counting body variant disagrees with reads_query")
+
+
+def time_body_variants(card, table_mb, res, errors):
+    """K10 at microbench_body's inputs (``table_mb``, 8 classes, h = 7,
+    65,536 reads): each variant's call and device-only ms, bound, and the
+    rate of every block read from memory; K2 on the same row-major table
+    and reads (its counts equal ``current``'s); each plain version, timed
+    once on the same inputs and held against the tool's output of that
+    variant (exact); at the default table also ``gatheronly``'s library
+    form, ``index_select`` of the blocks then ``sum``."""
+    from xspect2_tpu_torch.core.hashing import block_words_fieldbase_torch
+    from xspect2_tpu_torch.ops import body_variants as bv
+    from xspect2_tpu_torch.ops import query
+    from xspect2_tpu_torch.tools import microbench_body
+
+    num_classes, h, rpc = 8, 7, 8192
+    class_words, rows_per_block = bv.geometry(num_classes)
+    table, cwm, codes = microbench_body.inputs(table_mb, num_classes, 65_536, "cuda")
+    n = codes.shape[0]
+    nk = READ_LEN - K + 1
+    geom = dict(k=K, step=1, num_blocks=table.shape[0], rows_per_block=rows_per_block, class_words=class_words,
+                num_hashes=h, fields_per_word=1, num_classes=num_classes)
+    k2_out = query.reads_query(codes, table, **geom)
+    require(np.array_equal(k2_out.int().cpu().numpy(), res["outs"]["current"]),
+            f"reads_query differs from the body variants on microbench_body's {table_mb} MB inputs")
+    k2 = timed(lambda: query.reads_query(codes, table, **geom), 10)
+    k2_b = reads_bound(SimpleNamespace(num_blocks=table.shape[0], rows_per_block=rows_per_block,
+                                       class_words=class_words, num_hashes=h, fields_per_word=1), codes, k2_out)
+    hi, lo, _ = query._canonical_windows_plain(codes.long(), K, nk)
+    block, _, _ = block_words_fieldbase_torch(hi.reshape(-1), lo.reshape(-1), table.shape[0], rows_per_block, h)
+    del hi, lo
+    distinct = int(torch.unique(block).numel())
+    every_ms = block.numel() * 512 / HBM_BYTES_PER_S * 1e3
+    # K2 reads a k-mer's probe sectors, K10 its whole block: both as rates
+    k2_dev = k2["device_ms"] or k2["ms"]
+    sector_tb_s = k2_b["window_sectors"] * SECTOR_BYTES / (k2_dev * 1e-3) / 1e12
+    log(f"  timing [{card}] reads_query on microbench_body's {table_mb:g} MB table ({table.shape[0]} blocks), {n} "
+        f"reads: {ms_text(k2)}, bound {max(k2_b['bytes_ms'], k2_b['ops_ms']):.4f} ms; its {k2_b['window_sectors']} "
+        f"probe sectors of 32 B at {sector_tb_s:.3f} TB/s; {distinct} distinct blocks of {block.numel()} k-mers; "
+        f"every k-mer's 512 B block from memory {every_ms:.4f} ms")
+    out = {"k2": dict(k2, bound_ms=max(k2_b["bytes_ms"], k2_b["ops_ms"]), probe_sectors=k2_b["window_sectors"],
+                      sector_tb_s=sector_tb_s), "distinct_blocks": distinct, "every_block_ms": every_ms}
+    for v in bv.VARIANTS:
+        t = cwm if v in bv.CLASS_WORD_MAJOR else table
+        kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=rpc)
+        k10 = timed(lambda: bv.body_variants(v, codes, t, **kw), 10)
+        nbytes = distinct * 512 + codes.numel() + n * num_classes * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = block.numel() * body_ops(v, h, num_classes, class_words) / INT_OPS_PER_S * 1e3
+        row = dict(k10, bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   tool=res["variants"][v])
+        # the plain version on the same inputs, timed once, against the
+        # tool's own output of this variant
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = bv.body_variants_plain(v, codes, t, **kw)
+        end.record()
+        end.synchronize()
+        row["plain_ms"] = start.elapsed_time(end)
+        got = torch.from_numpy(res["outs"][v])
+        require(got.shape == want.shape, f"body_variants {v}: shape {tuple(got.shape)}, plain {tuple(want.shape)}")
+        row["max_abs_err"] = int((got.long() - want.cpu().long()).abs().max())
+        errors["body_variants"] = max(errors["body_variants"], row["max_abs_err"])
+        del want, got
+        extra = f", plain {row['plain_ms']:.4f} ms, max |err| vs plain {row['max_abs_err']}"
+        if table_mb == BODY_TABLE_MB[0] and v == "gatheronly":
+            row["library_ms"] = cuda_ms(lambda: table.index_select(0, block).sum(), 3)
+            extra += f", index_select + sum {row['library_ms']:.4f} ms"
+        dev = k10["device_ms"] or k10["ms"]
+        log(f"  timing [{card}] body_variants {v} ({table_mb:g} MB, {n} reads, h={h}): tool "
+            f"{res['variants'][v]['reads_per_s']:,.0f} reads/s, {res['variants'][v]['device_ms']:.4f} ms between "
+            f"events; {ms_text(k10)}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}: bytes {bytes_ms:.4f}, "
+            f"operations {ops_ms:.4f}), {dev / row['bound_ms']:.1f}x it{extra}; {dev / every_ms:.2f}x every block "
+            f"from memory, "
+            f"{dev / k2_dev:.2f}x reads_query")
+        out[v] = row
+    require(errors["body_variants"] == 0,
+            f"body_variants disagrees with its plain version on microbench_body's {table_mb:g} MB inputs")
+    return out
+
+
+def run_body_tools(card, errors):
+    """12b-12c: microbench_body at its defaults and at a 100 MB table, each
+    variant timed beside K2; microbench_spmd at its defaults.  The tools'
+    launches are read after each run and must include their kernels.
+    Returns (the launches, K10's timings, the numbers logged)."""
+    from xspect2_tpu_torch.tools import microbench_body, microbench_spmd
+
+    launches = {name: 0 for name in KERNELS}
+    timings, seconds = {}, {}
+    for table_mb in BODY_TABLE_MB:
+        reset_launches()
+        t0 = time.time()
+        res = microbench_body.run(table_mb=table_mb)
+        got = read_launches()
+        seconds[f"microbench_body {table_mb:g} MB"] = round(time.time() - t0, 2)
+        add_launches(launches, got)
+        require(got["body_variants"] > 0, f"microbench_body did not launch body_variants: {got}")
+        require(all(res["equal"].values()), f"microbench_body's counting variants disagree: {res['equal']}")
+        log(f"  microbench_body [{card}] ({table_mb:g} MB, {res['num_blocks']} blocks): "
+            f"{seconds[f'microbench_body {table_mb:g} MB']:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}; counting variants equal: {json.dumps(res['equal'])}")
+        timings[f"{table_mb:g}MB"] = time_body_variants(card, table_mb, res, errors)
+        del res
+    reset_launches()
+    t0 = time.time()
+    spmd = microbench_spmd.run(iters=SPMD_ITERS, repeats=SPMD_REPEATS)
+    got = read_launches()
+    seconds["microbench_spmd"] = round(time.time() - t0, 2)
+    add_launches(launches, got)
+    require(got["unpack_2bit"] > 0 and got["reads_query"] > 0, f"microbench_spmd did not launch K1 and K2: {got}")
+    mesh = {k: dict(reads_per_s=v["reads_per_s"], overhead_pct=v["overhead_pct"],
+                    overhead_pct_range=v["overhead_pct_range"]) for k, v in spmd["meshes"].items()}
+    single_range = spmd["single_reads_per_s_range"]
+    log(f"  microbench_spmd [{card}]: {SPMD_REPEATS} windows of {SPMD_ITERS} calls each, single engine and meshes in "
+        f"turn; single engine median {spmd['single_reads_per_s']:,.0f} reads/s (windows {single_range[0]:,.0f} to "
+        f"{single_range[1]:,.0f}); meshes (median, and the range of the windows' overheads) {json.dumps(mesh)}; every "
+        f"mesh's counts equal the single engine's ({spmd['single'].shape[0]} reads, hits {int(spmd['single'].sum())}); "
+        f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+    summary = dict(spmd_single_reads_per_s=spmd["single_reads_per_s"], spmd_single_reads_per_s_range=single_range,
+                   spmd_meshes=mesh, spmd_iters=SPMD_ITERS, spmd_repeats=SPMD_REPEATS, seconds=seconds)
+    return launches, timings, summary
+
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -3820,7 +4009,20 @@ def main() -> int:
     log(f"phase 11 [{card}]: {time.time() - t11:.1f} s")
     del genomes, species_idx, sp_reads
 
-    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings, "row_gather": k9_timing}
+    log("phase 12: the read query's body formulations and the mesh overhead: K10 against its plain version and "
+        "K2, microbench_body at 50 and 100 MB beside K2, microbench_spmd (4x2 and 8x1 meshes, every coordinate "
+        "in turn on this card)")
+    t12 = time.time()
+    check_body_variants(card, errors)
+    body_launches, body_timings, body_summary = run_body_tools(card, errors)
+    log(f"phase 12 [{card}]: {time.time() - t12:.1f} s")
+
+    default_body = body_timings[f"{BODY_TABLE_MB[0]:g}MB"]
+    k10_timing = dict({k: v for k, v in default_body["current"].items() if k not in ("tool", "max_abs_err")},
+                      library_ms=None,
+                      variants=body_timings)
+    all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings, "row_gather": k9_timing,
+                   "body_variants": k10_timing}
     all_timings["reads_query"]["block_sharded"] = k2_sharded
     # K2 over its launches of the run at their own shapes (species, genus,
     # the NCCL runs, the microbenchmark): time less bound, summed
@@ -3838,7 +4040,7 @@ def main() -> int:
     for name in ("records_wire", "records_query"):
         all_timings[name]["validation"] = val_timings[name]
     all_launches = (sp_launches, rb_launches, ge_launches, ga_launches, rec_launches, nccl_launches, val_launches,
-                    mlst_launches, x_launches, p_launches, product_launches, cal_launches)
+                    mlst_launches, x_launches, p_launches, product_launches, cal_launches, body_launches)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         kernels.append({
@@ -3852,6 +4054,7 @@ def main() -> int:
     log(f"validation [{card}]: {json.dumps(val_e2e)}")
     log(f"product [{card}]: {json.dumps(product)}")
     log(f"calibration [{card}]: {json.dumps(calibration)}")
+    log(f"body tools [{card}]: {json.dumps(body_summary)}")
     log(f"device busy share [{card}]: {rb_busy['busy_share']:.6f} over the traced read benchmark "
         f"({rb_busy['window_ms']:.3f} ms window, {rb_busy['kernel_busy_ms']:.3f} ms in kernels)")
     log(
@@ -3861,7 +4064,8 @@ def main() -> int:
         f"assembly benchmark and the web app's task, "
         f"the sharded classifiers' public methods at NCCL world size 1, the validated and the plain run "
         f"of the validation reads, classify_mlst and the three MLST predict runs, the xxh3 genus "
-        f"assemblies and reads with the filter's count API, the microbenchmark, the product path's card steps); "
+        f"assemblies and reads with the filter's count API, the microbenchmark, the product path's card steps, "
+        f"the calibration and body tools); "
         f"unpack_2bit and reads_query "
         f"timed at the species reads shape, "
         f"records_wire and records_query at one 4 Mbp assembly (block_sharded: one of 4 block shards "
@@ -3869,7 +4073,8 @@ def main() -> int:
         f"path; validation: the first batch of the validated reads), multi_records_query and reduce_record_counts at one group of 4 genomes, "
         f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
         f"chunk of 8,192 reads, row_gather at {CALIBRATION_N} indices of 512 B rows on a {CALIBRATION_TABLE_MB} MB "
-        f"table; "
+        f"table, body_variants (current; every variant under variants) at microbench_body's 65,536 reads on a "
+        f"{BODY_TABLE_MB[0]:g} MB table; "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

@@ -772,3 +772,35 @@ def test_records_query_kernel_reads_row_major_probe_rows(cuda_device, num_classe
     host = np.stack([idx.count_hits_host(*dna.canonical_kmers(c, 21, step=step)) for _, c in records])
     np.testing.assert_array_equal(total[: len(records)].cpu().numpy(), host)
     assert host.sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["current", "reduceand", "cwmajor", "cwmajor_p4", "noplanes", "cwm_noplanes",
+                                     "gatheronly"])
+@pytest.mark.parametrize("num_classes", [8, 40, 128, 500])
+def test_body_variants_kernel_matches_plain_and_reads_query(cuda_device, variant, num_classes):
+    """K10 at 1, 2, 4 and 16 class words and h = 1, 3, 7 equals its plain
+    version on reads that end in a partial chunk, with and without N
+    codes; a counting variant also equals K2 on the same row-major table."""
+    from xspect2_tpu_torch.ops import body_variants as bv
+
+    rng = np.random.default_rng(num_classes)
+    class_words, rows_per_block = bv.geometry(num_classes)
+    table = torch.from_numpy(
+        rng.integers(0, 2**32, size=(2003, bv.BLOCK_WORDS), dtype=np.uint32).view(np.int32)).to(cuda_device)
+    t = bv.class_word_major(table, num_classes) if variant in bv.CLASS_WORD_MAJOR else table
+    reads = torch.from_numpy(rng.integers(0, 4, size=(700, 150), dtype=np.uint8)).to(cuda_device)
+    with_n = reads.clone()
+    with_n[::9, 77] = 255
+    for h in (1, 3, 7):
+        kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=256)
+        for r in (reads, with_n):
+            before = bv.body_variants.launches
+            got = bv.body_variants(variant, r, t, **kw)
+            assert bv.body_variants.launches == before + 1
+            torch.testing.assert_close(got, bv.body_variants_plain(variant, r, t, **kw), rtol=0, atol=0)
+        if variant in bv.COUNTING:
+            k2 = query.reads_query(reads, table, k=21, step=1, num_blocks=2003, rows_per_block=rows_per_block,
+                                   class_words=class_words, num_hashes=h, fields_per_word=1,
+                                   num_classes=num_classes)
+            torch.testing.assert_close(bv.body_variants(variant, reads, t, **kw), k2.int(), rtol=0, atol=0)

@@ -64,6 +64,10 @@ SIGNATURES = {
     ),
     "probe_select": ("xs_probe_select", [_vp, _vp, _vp, _i64, _i32, _i32, _vp]),
     "row_gather": ("xs_row_gather", [_vp, _vp, _vp, _i64, _i64, _i32, _i32, _i64, _i64, _vp]),
+    "body_variants": (
+        "xs_body_variants",
+        [_vp, _vp, _vp, _i64, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i64, _i32, _vp],
+    ),
 }
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
