@@ -379,7 +379,9 @@ def table_sectors(idx) -> torch.Tensor:
 # ---------------------------------------------------------------- phase 1
 
 
-def build_all():
+def build_all() -> dict:
+    """Phase 1: every kernel library and the native library; returns each
+    kernel library's compiler output (``-Xptxas -v``)."""
     from xspect2_tpu_torch import native
     from xspect2_tpu_torch.ops import _kernels
 
@@ -400,6 +402,7 @@ def build_all():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     log(f"build: {len(logs)} kernels and the native library in {secs:.1f} s")
+    return logs
 
 
 # ---------------------------------------------------------------- phase 2
@@ -3711,11 +3714,15 @@ def run_calibration(card, genomes, reads, species_idx):
 # ---------------------------------------------------------------- phase 12
 
 # K10's checks: every variant at three class counts (1, 2 and 4 class
-# words) and three probe counts, on reads that end in a partial chunk
+# words) and three probe counts, on reads that end in a partial chunk;
+# (read length, k, reads, reads a chunk): the timed read length, then a
+# single short group of 32 windows (40 bp), one full group (52 bp), a full
+# group and one window (53 bp), and k = 31, on a read count that is no
+# multiple of K10's warps a block (6-8)
 BODY_CHECK_CLASSES = (8, 40, 128)
 BODY_CHECK_HASHES = (1, 3, 7)
-BODY_CHECK_READS = 3_000
-BODY_CHECK_CHUNK = 1_024
+BODY_CHECK_SHAPES = ((150, 21, 3_000, 1_024), (40, 21, 1_003, 256), (52, 21, 1_003, 256), (53, 21, 1_003, 256),
+                     (150, 31, 1_003, 256))
 BODY_CHECK_TABLE_MB = 4
 # microbench_body's table at its default and at the species headline's size
 BODY_TABLE_MB = (50.0, 100.0)
@@ -3743,7 +3750,7 @@ def body_ops(variant: str, num_hashes: int, num_classes: int, class_words: int) 
 
 def check_body_variants(card, errors):
     """12a: K10 against its plain version, each variant at C = 8, 40 and 128
-    and h = 1, 3 and 7, on 3,000 reads in chunks of 1,024 (the last one
+    and h = 1, 3 and 7, at each of BODY_CHECK_SHAPES (the last chunk
     partial), once as drawn and once with N codes (which pack as 0 and
     count); the counting variants against K2 on the same row-major table
     and clean reads.  All exact."""
@@ -3759,42 +3766,67 @@ def check_body_variants(card, errors):
         num_blocks = int(BODY_CHECK_TABLE_MB * 1e6 / (4 * bv.BLOCK_WORDS))
         table = random_table(rng, num_blocks, bv.BLOCK_WORDS, dev)
         cwm = bv.class_word_major(table, num_classes)
-        reads = torch.from_numpy(rng.integers(0, 4, size=(BODY_CHECK_READS, READ_LEN), dtype=np.uint8)).to(dev)
-        with_n = reads.clone()
-        rows = torch.from_numpy(rng.integers(0, BODY_CHECK_READS, 300)).to(dev)
-        with_n[rows, torch.from_numpy(rng.integers(0, READ_LEN, 300)).to(dev)] = 255
-        for h in BODY_CHECK_HASHES:
-            k2 = query.reads_query(reads, table, k=K, step=1, num_blocks=num_blocks, rows_per_block=rows_per_block,
-                                   class_words=class_words, num_hashes=h, fields_per_word=1,
-                                   num_classes=num_classes).int()
-            errs = {}
-            for v in bv.VARIANTS:
-                t = cwm if v in bv.CLASS_WORD_MAJOR else table
-                kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=BODY_CHECK_CHUNK)
-                err = 0
-                for r in (reads, with_n):
-                    got = bv.body_variants(v, r, t, **kw)
-                    want = bv.body_variants_plain(v, r, t, **kw)
-                    err = max(err, int((got.long() - want.long()).abs().max()))
-                    if v in bv.COUNTING and r is reads:
-                        k2_err = max(k2_err, int((got - k2).abs().max()))
-                errs[v] = err
-                errors["body_variants"] = max(errors["body_variants"], err)
-            log(f"  body_variants vs plain: C={num_classes} (cw={class_words}, rpb={rows_per_block}) h={h}, "
-                f"{BODY_CHECK_READS} reads in chunks of {BODY_CHECK_CHUNK}, with and without N: max |err| "
-                f"{json.dumps(errs)}; counting variants vs reads_query max |err| {k2_err}, hits {int(k2.sum())}")
+        for read_len, k, n_reads, chunk in BODY_CHECK_SHAPES:
+            reads = torch.from_numpy(rng.integers(0, 4, size=(n_reads, read_len), dtype=np.uint8)).to(dev)
+            with_n = reads.clone()
+            rows = torch.from_numpy(rng.integers(0, n_reads, n_reads // 10)).to(dev)
+            with_n[rows, torch.from_numpy(rng.integers(0, read_len, n_reads // 10)).to(dev)] = 255
+            for h in BODY_CHECK_HASHES:
+                k2 = query.reads_query(reads, table, k=k, step=1, num_blocks=num_blocks,
+                                       rows_per_block=rows_per_block, class_words=class_words, num_hashes=h,
+                                       fields_per_word=1, num_classes=num_classes).int()
+                errs = {}
+                for v in bv.VARIANTS:
+                    t = cwm if v in bv.CLASS_WORD_MAJOR else table
+                    kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=chunk, k=k)
+                    err = 0
+                    for r in (reads, with_n):
+                        got = bv.body_variants(v, r, t, **kw)
+                        want = bv.body_variants_plain(v, r, t, **kw)
+                        err = max(err, int((got.long() - want.long()).abs().max()))
+                        if v in bv.COUNTING and r is reads:
+                            k2_err = max(k2_err, int((got - k2).abs().max()))
+                    errs[v] = err
+                    errors["body_variants"] = max(errors["body_variants"], err)
+                log(f"  body_variants vs plain: C={num_classes} (cw={class_words}, rpb={rows_per_block}) h={h}, "
+                    f"{n_reads} reads of {read_len} bp at k={k} in chunks of {chunk}, with and without N: max "
+                    f"|err| {json.dumps(errs)}; counting variants vs reads_query max |err| {k2_err}, hits "
+                    f"{int(k2.sum())}")
     require(errors["body_variants"] == 0, "body_variants disagrees with its plain version")
     require(k2_err == 0, "a counting body variant disagrees with reads_query")
 
 
-def time_body_variants(card, table_mb, res, errors):
+def k10_build(read_len: int, num_classes: int, ptxas_log: str) -> dict:
+    """K10's launch at ``read_len`` and ``num_classes`` on this card, by
+    variant, as the kernel library reports it after the timed launches
+    (``launch_config``: warps a block, one block an SM, dynamic shared
+    memory, registers), and what ``-Xptxas -v`` said (``ptxas_log``) of the
+    instantiations at that class-word count."""
+    from xspect2_tpu_torch.ops.body_variants import VARIANTS, geometry, launch_config
+
+    out = {"launch": {v: launch_config(v, read_len, num_classes) for v in VARIANTS}, "ptxas": {}}
+    cw = geometry(num_classes)[0]
+    fn = None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"body_kernelILi(\d)ELi(\d+)E", line)
+        if m:
+            fn = VARIANTS[int(m.group(1))] if int(m.group(2)) == cw else None
+        elif fn and ("registers" in line or "spill" in line):
+            out["ptxas"][fn] = "; ".join(filter(None, [out["ptxas"].get(fn), line.split("info    :")[-1].strip()]))
+    return out
+
+
+def time_body_variants(card, table_mb, res, errors, ptxas_log):
     """K10 at microbench_body's inputs (``table_mb``, 8 classes, h = 7,
-    65,536 reads): each variant's call and device-only ms, bound, and the
-    rate of every block read from memory; K2 on the same row-major table
-    and reads (its counts equal ``current``'s); each plain version, timed
-    once on the same inputs and held against the tool's output of that
-    variant (exact); at the default table also ``gatheronly``'s library
-    form, ``index_select`` of the blocks then ``sum``."""
+    65,536 reads): each variant's call and device-only ms, bound, the rate
+    of every block read from memory, and its device-only time as a
+    multiple of K2's, gatheronly's and its bound; K2 on the same row-major
+    table and reads (its counts equal ``current``'s); each plain version,
+    timed once on the same inputs and held against the tool's output of
+    that variant (exact); at the default table also ``gatheronly``'s
+    library form, ``index_select`` of the blocks then ``sum``, and the
+    registers (from ``ptxas_log``, K10's compiler output) and shared
+    memory of the timed instantiations."""
     from xspect2_tpu_torch.core.hashing import block_words_fieldbase_torch
     from xspect2_tpu_torch.ops import body_variants as bv
     from xspect2_tpu_torch.ops import query
@@ -3861,14 +3893,28 @@ def time_body_variants(card, table_mb, res, errors):
             f"from memory, "
             f"{dev / k2_dev:.2f}x reads_query")
         out[v] = row
+    # each variant's device-only time as a multiple of K2's, gatheronly's
+    # and its bound, all of this run
+    gather_dev = out["gatheronly"]["device_ms"] or out["gatheronly"]["ms"]
+    for v in bv.VARIANTS:
+        dev = out[v]["device_ms"] or out[v]["ms"]
+        out[v].update(x_reads_query=dev / k2_dev, x_gatheronly=dev / gather_dev, x_bound=dev / out[v]["bound_ms"])
+    log(f"  timing [{card}] body_variants ({table_mb:g} MB) device-only ms, and as multiples of reads_query "
+        f"({k2_dev:.4f} ms), gatheronly ({gather_dev:.4f} ms) and the bound: "
+        + json.dumps({v: [round(out[v]["device_ms"] or out[v]["ms"], 4), round(out[v]["x_reads_query"], 3),
+                          round(out[v]["x_gatheronly"], 3), round(out[v]["x_bound"], 1)] for v in bv.VARIANTS}))
+    if table_mb == BODY_TABLE_MB[0]:
+        out["build"] = k10_build(READ_LEN, num_classes, ptxas_log)
+        log(f"  body_variants build [{card}] at {READ_LEN} bp: {json.dumps(out['build'])}")
     require(errors["body_variants"] == 0,
             f"body_variants disagrees with its plain version on microbench_body's {table_mb:g} MB inputs")
     return out
 
 
-def run_body_tools(card, errors):
+def run_body_tools(card, errors, ptxas_log):
     """12b-12c: microbench_body at its defaults and at a 100 MB table, each
-    variant timed beside K2; microbench_spmd at its defaults.  The tools'
+    variant timed beside K2 (``ptxas_log``: K10's compiler output);
+    microbench_spmd at its defaults.  The tools'
     launches are read after each run and must include their kernels.
     Returns (the launches, K10's timings, the numbers logged)."""
     from xspect2_tpu_torch.tools import microbench_body, microbench_spmd
@@ -3887,7 +3933,7 @@ def run_body_tools(card, errors):
         log(f"  microbench_body [{card}] ({table_mb:g} MB, {res['num_blocks']} blocks): "
             f"{seconds[f'microbench_body {table_mb:g} MB']:.1f} s, launches "
             f"{json.dumps({k: v for k, v in got.items() if v})}; counting variants equal: {json.dumps(res['equal'])}")
-        timings[f"{table_mb:g}MB"] = time_body_variants(card, table_mb, res, errors)
+        timings[f"{table_mb:g}MB"] = time_body_variants(card, table_mb, res, errors, ptxas_log)
         del res
     reset_launches()
     t0 = time.time()
@@ -3934,7 +3980,7 @@ def main() -> int:
     t_start = time.time()
 
     log("phase 1: build")
-    build_all()
+    build_logs = build_all()
     errors = {name: 0 for name in KERNELS}
     log("phase 2: kernels against their plain versions")
     check_kernels(rng, errors)
@@ -4014,7 +4060,7 @@ def main() -> int:
         "in turn on this card)")
     t12 = time.time()
     check_body_variants(card, errors)
-    body_launches, body_timings, body_summary = run_body_tools(card, errors)
+    body_launches, body_timings, body_summary = run_body_tools(card, errors, build_logs["body_variants"])
     log(f"phase 12 [{card}]: {time.time() - t12:.1f} s")
 
     default_body = body_timings[f"{BODY_TABLE_MB[0]:g}MB"]

@@ -80,23 +80,24 @@ def _port(variant, table, reads, num_classes):
     return out.numpy()
 
 
-def _pack_and_hash(reads, num_blocks, rows_per_block):
+def _pack_and_hash(reads, num_blocks, rows_per_block, k=K):
     """The JAX tool's ``pack_and_hash`` (``tools/microbench_body.py:67-95``)
     in numpy, then the JAX package's ``block_and_rows``."""
     r = reads.astype(np.uint32)
-    lo_bases = min(K, 16)
-    hi_bases = K - lo_bases
-    z = np.zeros((r.shape[0], NK), np.uint32)
+    nk = r.shape[1] - k + 1
+    lo_bases = min(k, 16)
+    hi_bases = k - lo_bases
+    z = np.zeros((r.shape[0], nk), np.uint32)
     f_hi, f_lo, r_hi, r_lo = z.copy(), z.copy(), z.copy(), z.copy()
-    for j in range(K):
-        c = r[:, j : j + NK]
+    for j in range(k):
+        c = r[:, j : j + nk]
         cm = np.where(c > 3, 0, c).astype(np.uint32)
         if j < hi_bases:
             f_hi = (f_hi << np.uint32(2)) | cm
         else:
             f_lo = (f_lo << np.uint32(2)) | cm
-    for t in range(K):
-        c = r[:, K - 1 - t : K - 1 - t + NK]
+    for t in range(k):
+        c = r[:, k - 1 - t : k - 1 - t + nk]
         cm = np.where(c > 3, 0, 3 - c).astype(np.uint32)
         if t < hi_bases:
             r_hi = (r_hi << np.uint32(2)) | cm
@@ -106,6 +107,25 @@ def _pack_and_hash(reads, num_blocks, rows_per_block):
     hi = np.where(fwd_le, f_hi, r_hi).reshape(-1)
     lo = np.where(fwd_le, f_lo, r_lo).reshape(-1)
     return jax_hashing.block_and_rows(hi, lo, num_blocks, rows_per_block, H, xp=np)
+
+
+def _tool_checksums(variant, table, reads, num_classes, k=K):
+    """The JAX tool's checksum of ``variant`` for each chunk of ``RPC``
+    reads: the AND-ed probe words (``body_noplanes``,
+    ``body_cwmajor_noplanes``) or every gathered block word and row id
+    (``body_gatheronly``), wrapped to uint32."""
+    class_words, rows_per_block = bv.geometry(num_classes)
+    blocks3 = table.reshape(-1, rows_per_block, class_words)
+    sums = []
+    for c0 in range(0, reads.shape[0], RPC):
+        block, rows = _pack_and_hash(reads[c0 : c0 + RPC], table.shape[0], rows_per_block, k)
+        if variant == "gatheronly":
+            want = table[block].sum(dtype=np.uint64) + rows.sum(dtype=np.uint64)
+        else:
+            probes = blocks3[block[:, None], rows]  # [k-mers, h, cw]
+            want = np.bitwise_and.reduce(probes, axis=1).sum(dtype=np.uint64)
+        sums.append(np.uint32(int(want) & 0xFFFFFFFF))
+    return sums
 
 
 _JAX_COUNTS: dict = {}
@@ -140,19 +160,48 @@ def test_checksums_equal_the_jax_tools_formula(variant, num_classes):
     the AND-ed probe words (``body_noplanes``, ``body_cwmajor_noplanes``) or
     every gathered block word and row id (``body_gatheronly``)."""
     table, reads = _inputs(num_classes)
-    class_words, rows_per_block = bv.geometry(num_classes)
     got = _port(variant, table, reads, num_classes).view(np.uint32)
-    blocks3 = table.reshape(-1, rows_per_block, class_words)
-    for c0 in range(0, N_READS, RPC):
-        chunk = reads[c0 : c0 + RPC]
-        block, rows = _pack_and_hash(chunk, table.shape[0], rows_per_block)
-        if variant == "gatheronly":
-            want = table[block].sum(dtype=np.uint64) + rows.sum(dtype=np.uint64)
-        else:
-            probes = blocks3[block[:, None], rows]  # [k-mers, h, cw]
-            want = np.bitwise_and.reduce(probes, axis=1).sum(dtype=np.uint64)
-        want = np.uint32(int(want) & 0xFFFFFFFF)
+    for chunk, want in enumerate(_tool_checksums(variant, table, reads, num_classes)):
+        c0 = chunk * RPC
         assert (got[c0 : c0 + RPC] == want).all(), (variant, c0)
+
+
+# (read length, k) at the edges of a group of 32 windows (40 bp: 20
+# windows, 52: 32, 53: 33), of k (1, 16, 17, 31, 32) and of the read
+# (a read of one window; 512 bp, the longest the kernel takes)
+EDGE_SHAPES = [(40, 21), (52, 21), (53, 21), (150, 31), (512, 32), (1, 1), (17, 16), (33, 17), (21, 21)]
+
+
+@pytest.mark.parametrize("read_len,k", EDGE_SHAPES)
+def test_the_hash_prologue_at_edge_read_lengths(read_len, k):
+    """The plain version's windows and hashes equal the JAX tool's pack and
+    ``block_and_rows`` at every edge shape, N codes included."""
+    rng = np.random.default_rng(read_len * 33 + k)
+    reads = rng.integers(0, 4, size=(16, read_len), dtype=np.uint8)
+    reads[rng.random(reads.shape) < 0.05] = 255
+    nk = read_len - k + 1
+    hi, lo, _ = _canonical_windows_plain(torch.from_numpy(reads).long(), k, nk)
+    block, rows, _ = block_words_fieldbase_torch(hi.reshape(-1), lo.reshape(-1), 1009, 16, H)
+    want_block, want_rows = _pack_and_hash(reads, 1009, 16, k)
+    np.testing.assert_array_equal(block.numpy(), want_block.astype(np.int64))
+    np.testing.assert_array_equal(rows.numpy(), want_rows.astype(np.int64))
+
+
+@pytest.mark.parametrize("read_len,k", [(40, 21), (150, 31)])
+@pytest.mark.parametrize("variant", ["noplanes", "cwm_noplanes", "gatheronly"])
+def test_checksums_at_edge_read_lengths(variant, read_len, k):
+    """A single short group (40 bp) and k = 31: each chunk's checksum is
+    the JAX tool's formula, on reads with N codes that end in a partial
+    chunk."""
+    table, _ = _inputs(40)
+    rng = np.random.default_rng(read_len + k)
+    reads = rng.integers(0, 4, size=(N_READS, read_len), dtype=np.uint8)
+    reads[::9, read_len // 2] = 255
+    t = _cwm(table, 40) if variant in bv.CLASS_WORD_MAJOR else table
+    got = bv.body_variants(variant, torch.from_numpy(reads), torch.from_numpy(t.view(np.int32)), num_classes=40,
+                           num_hashes=H, reads_per_chunk=RPC, k=k).numpy().view(np.uint32)
+    for chunk, want in enumerate(_tool_checksums(variant, table, reads, 40, k)):
+        assert (got[chunk * RPC : (chunk + 1) * RPC] == want).all(), (variant, chunk)
 
 
 @pytest.mark.parametrize("num_classes", [8, 40, 128, 512])

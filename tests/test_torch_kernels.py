@@ -774,33 +774,73 @@ def test_records_query_kernel_reads_row_major_probe_rows(cuda_device, num_classe
     assert host.sum() > 0
 
 
+# (read length, k, reads): the timed shape; a single short group (40 bp:
+# 20 windows), one full group (52 bp: 32), a full group and one window
+# (53 bp: 33), k = 31 at 150 bp; 333 reads are no multiple of the warps
+# a block (6-8) and end in a partial chunk of 256
+BODY_SHAPES = {"150bp_k21": (150, 21, 700), "40bp_k21": (40, 21, 333), "52bp_k21": (52, 21, 333),
+               "53bp_k21": (53, 21, 333), "150bp_k31": (150, 31, 333)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["current", "reduceand", "cwmajor", "cwmajor_p4", "noplanes", "cwm_noplanes",
                                      "gatheronly"])
 @pytest.mark.parametrize("num_classes", [8, 40, 128, 500])
-def test_body_variants_kernel_matches_plain_and_reads_query(cuda_device, variant, num_classes):
+@pytest.mark.parametrize("shape", list(BODY_SHAPES))
+def test_body_variants_kernel_matches_plain_and_reads_query(cuda_device, variant, num_classes, shape):
     """K10 at 1, 2, 4 and 16 class words and h = 1, 3, 7 equals its plain
     version on reads that end in a partial chunk, with and without N
-    codes; a counting variant also equals K2 on the same row-major table."""
+    codes, at read lengths that leave a partial or a single short group of
+    32 windows and at k = 31; a counting variant also equals K2 on the
+    same row-major table."""
     from xspect2_tpu_torch.ops import body_variants as bv
 
+    read_len, k, n_reads = BODY_SHAPES[shape]
     rng = np.random.default_rng(num_classes)
     class_words, rows_per_block = bv.geometry(num_classes)
     table = torch.from_numpy(
         rng.integers(0, 2**32, size=(2003, bv.BLOCK_WORDS), dtype=np.uint32).view(np.int32)).to(cuda_device)
     t = bv.class_word_major(table, num_classes) if variant in bv.CLASS_WORD_MAJOR else table
-    reads = torch.from_numpy(rng.integers(0, 4, size=(700, 150), dtype=np.uint8)).to(cuda_device)
+    reads = torch.from_numpy(rng.integers(0, 4, size=(n_reads, read_len), dtype=np.uint8)).to(cuda_device)
     with_n = reads.clone()
-    with_n[::9, 77] = 255
+    with_n[::9, 77 if read_len > 77 else read_len // 2] = 255
     for h in (1, 3, 7):
-        kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=256)
+        kw = dict(num_classes=num_classes, num_hashes=h, reads_per_chunk=256, k=k)
         for r in (reads, with_n):
             before = bv.body_variants.launches
             got = bv.body_variants(variant, r, t, **kw)
             assert bv.body_variants.launches == before + 1
             torch.testing.assert_close(got, bv.body_variants_plain(variant, r, t, **kw), rtol=0, atol=0)
         if variant in bv.COUNTING:
-            k2 = query.reads_query(reads, table, k=21, step=1, num_blocks=2003, rows_per_block=rows_per_block,
+            k2 = query.reads_query(reads, table, k=k, step=1, num_blocks=2003, rows_per_block=rows_per_block,
                                    class_words=class_words, num_hashes=h, fields_per_word=1,
                                    num_classes=num_classes)
             torch.testing.assert_close(bv.body_variants(variant, reads, t, **kw), k2.int(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["current", "reduceand", "cwmajor", "cwmajor_p4", "noplanes", "cwm_noplanes",
+                                     "gatheronly"])
+def test_body_variants_launch_fits_every_read_length(cuda_device, variant):
+    """The launch K10's library sizes (``launch_config``) at every read
+    length 1-512 and class-word count: at least one warp a block, one
+    block an SM, a ring of at least two 16 KB groups a warp, and no more
+    shared memory than the card lets a block ask for; a launch at a read
+    length leaves that length's sizing in place."""
+    from xspect2_tpu_torch.ops import body_variants as bv
+
+    for num_classes in (8, 40, 128, 256, 500):
+        for read_len in range(1, bv.MAX_READ_LEN + 1):
+            c = bv.launch_config(variant, read_len, num_classes, cuda_device)
+            assert 1 <= c["warps_a_block"] <= 8 and c["blocks_an_sm"] >= 1 and c["stages"] >= 2, (read_len, c)
+            assert c["dynamic_smem_bytes"] <= c["optin_smem_bytes"], (read_len, c)
+            assert c["dynamic_smem_bytes"] // c["warps_a_block"] >= c["stages"] * 32 * 4 * bv.BLOCK_WORDS
+            assert c["registers"] > 0 and c["sms"] > 0
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(
+        rng.integers(0, 2**32, size=(2003, bv.BLOCK_WORDS), dtype=np.uint32).view(np.int32)).to(cuda_device)
+    t = bv.class_word_major(table, 8) if variant in bv.CLASS_WORD_MAJOR else table
+    before = bv.launch_config(variant, 150, 8, cuda_device)
+    reads = torch.from_numpy(rng.integers(0, 4, size=(100, 150), dtype=np.uint8)).to(cuda_device)
+    bv.body_variants(variant, reads, t, num_classes=8, num_hashes=3, reads_per_chunk=64)
+    assert bv.launch_config(variant, 150, 8, cuda_device) == before

@@ -69,6 +69,11 @@ SIGNATURES = {
         [_vp, _vp, _vp, _i64, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i64, _i32, _vp],
     ),
 }
+# further C entry points of a kernel library: name -> (library, symbol, argtypes)
+EXTRA_ENTRIES = {
+    # the launch xs_body_variants makes at a read length (7 ints out)
+    "body_variants_config": ("body_variants", "xs_body_variants_config", [_i32, _i32, _i32, _vp]),
+}
 _INCLUDE = re.compile(r'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}  # kernel name -> configured ctypes entry point
@@ -138,13 +143,17 @@ def build(names=None) -> dict[str, str]:
 
 
 def entry(name: str):
-    """The C entry point of kernel ``name``, built and loaded on first use."""
+    """The C entry point of kernel ``name`` (or of :data:`EXTRA_ENTRIES`),
+    its library built and loaded on first use."""
     fn = _loaded.get(name)
     if fn is None:
-        path = library_path(name)
+        if name in EXTRA_ENTRIES:
+            library, symbol, argtypes = EXTRA_ENTRIES[name]
+        else:
+            library, (symbol, argtypes) = name, SIGNATURES[name]
+        path = library_path(library)
         if not path.exists():
-            build([name])
-        symbol, argtypes = SIGNATURES[name]
+            build([library])
         fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

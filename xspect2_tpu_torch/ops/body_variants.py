@@ -26,8 +26,11 @@ holding uint32 bits).
 :func:`body_variants_plain` is the plain PyTorch version of the same
 functions, written as the tool's programs are; the wrapper uses it only
 for tensors on the CPU, and counts its kernel launches in
-``body_variants.launches``.
+``body_variants.launches``.  :func:`launch_config` reports the launch the
+kernel library sizes for a read length.
 """
+
+import ctypes
 
 import torch
 
@@ -236,3 +239,25 @@ def body_variants(
 
 
 body_variants.launches = 0
+
+_CONFIG_KEYS = ("warps_a_block", "dynamic_smem_bytes", "blocks_an_sm", "sms", "optin_smem_bytes",
+                "registers", "stages")
+
+
+def launch_config(variant: str, read_len: int, num_classes: int, device=None) -> dict:
+    """The launch :func:`body_variants` makes for ``variant`` at
+    ``num_classes`` classes and ``read_len`` on a CUDA ``device`` (the
+    current one by default), as the kernel library sizes it: warps a
+    block, dynamic shared memory a block, blocks an SM, the card's SMs and
+    opt-in shared memory a block, registers a thread, groups a warp stages.
+    Launches nothing; raises on a device that is not CUDA."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}: expected one of {VARIANTS}")
+    device = torch.device("cuda") if device is None else torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError("launch_config reports a CUDA launch: it needs a CUDA device")
+    out = (ctypes.c_int * len(_CONFIG_KEYS))()
+    with torch.cuda.device(device):
+        rc = _kernels.entry("body_variants_config")(read_len, VARIANTS.index(variant), geometry(num_classes)[0], out)
+    _kernels.check("body_variants", rc)
+    return dict(zip(_CONFIG_KEYS, out))
