@@ -3553,17 +3553,44 @@ SMOKE_GEOMETRIES = (
 )
 
 
-def check_row_gather(card, errors):
+def check_row_gather(card, errors, ptxas_log):
     """11a: K9 in its three modes equals its plain version at 512 B and 4 KB
-    rows, the window clipping on both sides; then K9 at 2**21 indices of
-    512 B rows on a 200 MB table: time, bound, plain time, and the library
-    form (``index_select`` then ``sum``, which writes and reads back the
-    whole gather)."""
-    from xspect2_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+    rows on the 200 MB table, the window clipping on both sides; at 512 B
+    rows around the grid stride of its launch (one index, a stride less
+    one, a stride, a stride and one, seven strides and 3, 2**21 less 3) on
+    index views that start 0, 4, 8 and 12 B past a 16 B boundary, drawn
+    from a generator of their own so that the timed indices stay the
+    earlier runs'; then K9's launch (the constants of its source, this
+    card's SMs, and each mode's registers from ``-Xptxas -v``,
+    ``ptxas_log``, None for a library built before this run), and K9 at 2**21 indices of 512 B rows on a 200 MB
+    table: time, the distinct-row bound (each distinct row once), the
+    in-order floor (``in_order_floor_bytes``, uniformly random indices),
+    plain time, and the library form (``index_select`` then ``sum``, which
+    writes and reads back the whole gather)."""
+    from xspect2_tpu_torch.ops.row_gather import (
+        BLOCKS_AN_SM,
+        L2_BYTES,
+        MODES,
+        THREADS_A_BLOCK,
+        grid_stride,
+        in_order_floor_bytes,
+        lanes_a_row,
+        row_gather,
+        row_gather_plain,
+    )
     from xspect2_tpu_torch.tools._synthetic import random_table
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(3)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def hold(t, idx, mode, window, label):
+        got = row_gather(t, idx, mode, window)
+        want = row_gather_plain(t, idx, mode, window)
+        err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+        errors["row_gather"] = max(errors["row_gather"], err)
+        log(f"  row_gather vs plain: {label}, {mode}{'' if window is None else f' {window}'}: max |err| {err}")
+
     for row_bytes, n in ((512, CALIBRATION_N), (4096, CALIBRATION_N // 8)):
         rows = int(CALIBRATION_TABLE_MB * 1e6 / row_bytes)
         table = random_table(rng, rows, row_bytes // 4, dev)
@@ -3571,15 +3598,34 @@ def check_row_gather(card, errors):
         lo, hi = rows // 3, rows // 3 + rows // 4
         for mode, window, t in (("total", None, table), ("per_row", None, table),
                                 ("window", (lo, hi - lo), table[lo:hi])):
-            got = row_gather(t, idx, mode, window)
-            want = row_gather_plain(t, idx, mode, window)
-            err = int((got.long() - want.long()).abs().max())
-            errors["row_gather"] = max(errors["row_gather"], err)
-            log(f"  row_gather vs plain: {row_bytes} B rows, {rows} rows, n={n}, {mode}"
-                f"{'' if window is None else f' {window}'}: max |err| {err}")
-            del got, want
+            hold(t, idx, mode, window, f"{row_bytes} B rows, {rows} rows, n={n}")
+        if row_bytes == 512:
+            step = grid_stride(128, sms)
+            edge_rng = np.random.default_rng(11)
+            pool = torch.from_numpy(edge_rng.integers(-5, rows + 5, size=n, dtype=np.int32)).to(dev)
+            for shift in range(4):
+                for n_edge in (1, step - 1, step, step + 1, 7 * step + 3, n - 3):
+                    view = pool[shift:shift + n_edge]
+                    for mode, window, t in (("total", None, table), ("per_row", None, table),
+                                            ("window", (lo, hi - lo), table[lo:hi])):
+                        hold(t, view, mode, window, f"512 B rows, idx {4 * shift} B past 16 B, n={n_edge}")
+            del pool
         del table, idx
     require(errors["row_gather"] == 0, "row_gather disagrees with its plain version")
+    registers = {}
+    fn = None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"row_gather_kernelILi(\d)E", line)
+        if m:
+            fn = int(m.group(1))
+        elif fn is not None and "registers" in line:
+            registers[fn] = int(re.search(r"Used (\d+) registers", line).group(1))
+    launch = {"warps_a_block": THREADS_A_BLOCK // 32, "blocks_an_sm": BLOCKS_AN_SM, "sms": sms,
+              "dynamic_smem_bytes": 0, "lanes_a_row": lanes_a_row(128), "grid_stride": grid_stride(128, sms),
+              "registers": {mode: registers.get(code) for mode, code in MODES.items()}}
+    log(f"  row_gather launch [{card}], 512 B rows: {launch['warps_a_block']} warps a block, at most "
+        f"{BLOCKS_AN_SM} blocks an SM of {sms}, no dynamic shared memory, {launch['lanes_a_row']} lanes a row, "
+        f"a grid stride of {launch['grid_stride']} indices, registers {launch['registers']}")
 
     n = CALIBRATION_N
     rows = int(CALIBRATION_TABLE_MB * 1e6 / 512)
@@ -3594,13 +3640,17 @@ def check_row_gather(card, errors):
     nbytes = touched * 512 + 4 * n + 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     every_ms = (n * 512 + 4 * n) / HBM_BYTES_PER_S * 1e3
+    floor_ms = in_order_floor_bytes(n, 512, rows * 512, touched) / HBM_BYTES_PER_S * 1e3
     ops_ms = n * 128 / INT_OPS_PER_S * 1e3  # one add a word
+    dev_ms = k9["device_ms"] or k9["ms"]
     log(f"  timing [{card}] row_gather ({n} indices of 512 B rows, a {CALIBRATION_TABLE_MB} MB table): {ms_text(k9)}, "
         f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}: {touched} distinct rows of {rows} and the "
         f"indices, {nbytes} B once; operations {ops_ms:.4f}; every gathered row from memory, n x 512 B + 4n, "
-        f"{every_ms:.4f}), plain {plain:.4f} ms, index_select + sum {library:.4f} ms")
+        f"{every_ms:.4f}), in_order_floor_ms {floor_ms:.4f} (the L2 holding {L2_BYTES / 1e6:g} MB of the table; "
+        f"the kernel's device-only time {dev_ms / floor_ms:.3f}x it), plain {plain:.4f} ms, index_select + sum {library:.4f} ms")
     return dict(k9, plain_ms=plain, bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library)
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations", library_ms=library,
+                in_order_floor_ms=floor_ms, launch=launch)
 
 
 def picker_part(card, budgets, genomes, reads, species_idx, launches):
@@ -4050,7 +4100,7 @@ def main() -> int:
         "recalibrate_constants at its defaults and across the L2, the gather grid, sorted gather, split, "
         "block shards (40 x 4 Mbp), fields, and what the card's budget would pick")
     t11 = time.time()
-    k9_timing = check_row_gather(card, errors)
+    k9_timing = check_row_gather(card, errors, build_logs["row_gather"])
     cal_launches, calibration = run_calibration(card, genomes, sp_reads, species_idx)
     log(f"phase 11 [{card}]: {time.time() - t11:.1f} s")
     del genomes, species_idx, sp_reads

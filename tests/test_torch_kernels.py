@@ -689,6 +689,74 @@ def test_row_gather_kernel_matches_plain(cuda_device, row_words, n):
         row_gather(table.view(-1)[1 : 1 + 8 * row_words].view(8, row_words), idx)
 
 
+# n at the edges of a grid stride of K9's launch, as names: the stride is
+# the card's SMs times the indices an SM's blocks take a step
+ROW_GATHER_NS = ("0", "1", "step-1", "step", "step+1", "5steps+3")
+
+
+def _row_gather_n(name, step):
+    return {"0": 0, "1": 1, "step-1": step - 1, "step": step, "step+1": step + 1, "5steps+3": 5 * step + 3}[name]
+
+
+def _row_gather_table(rng, rows, row_words, device):
+    return torch.from_numpy(
+        rng.integers(0, 2**32, size=(rows, row_words), dtype=np.uint32).view(np.int32)).to(device)
+
+
+def _row_gather_holds(table, idx, window):
+    """K9 equals its plain version exactly in all three modes, one launch
+    a call (none for no indices)."""
+    from xspect2_tpu_torch.ops.row_gather import row_gather, row_gather_plain
+
+    for mode, w, t in (("total", None, table), ("per_row", None, table),
+                       ("window", window, table[window[0]: window[0] + window[1]])):
+        before = row_gather.launches
+        got = row_gather(t, idx, mode=mode, window=w)
+        assert row_gather.launches == before + (1 if idx.numel() else 0)
+        want = row_gather_plain(t, idx, mode=mode, window=w)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_words", [4, 40, 128, 1024])
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+@pytest.mark.parametrize("n_name", ROW_GATHER_NS)
+def test_row_gather_kernel_step_edges_and_unaligned_indices(cuda_device, row_words, shift, n_name):
+    """K9 at rows of 16 B, 160 B, 512 B and 4 KB, at n of 0, 1 and around
+    the grid stride of its launch (where each warp comes back for its next
+    indices), on index views that start 0, 4, 8 and 12 B past a 16 B
+    boundary, with indices out of range on both sides: exact in all three
+    modes."""
+    from xspect2_tpu_torch.ops.row_gather import grid_stride
+
+    rng = np.random.default_rng(row_words * 31 + shift)
+    rows = 2003
+    table = _row_gather_table(rng, rows, row_words, cuda_device)
+    step = grid_stride(row_words, torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    n = _row_gather_n(n_name, step)
+    pool = torch.from_numpy(rng.integers(-7, rows + 7, size=n + 8, dtype=np.int32)).to(cuda_device)
+    base = pool.data_ptr() % 16 // 4  # torch's allocations start 16 B aligned; a view may not
+    idx = pool[(shift - base) % 4:][:n]
+    assert idx.numel() == n and (n == 0 or idx.data_ptr() % 16 == 4 * shift)
+    _row_gather_holds(table, idx, (rows // 5, rows // 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row_words", [4, 40, 128, 1024])
+def test_row_gather_kernel_hot_row_and_sparse_window(cuda_device, row_words):
+    """Every index naming one row (each load hits the same lines), and a
+    window of 20 rows of 4,000 that clips both sides so that nearly every
+    load is skipped: exact in all three modes."""
+    rng = np.random.default_rng(row_words)
+    rows = 4000
+    table = _row_gather_table(rng, rows, row_words, cuda_device)
+    hot = torch.full((9_001,), 1234, dtype=torch.int32, device=cuda_device)
+    _row_gather_holds(table, hot, (1200, 100))
+    idx = torch.from_numpy(rng.integers(-50, rows + 50, size=20_011, dtype=np.int32)).to(cuda_device)
+    _row_gather_holds(table, idx, (1990, 20))
+
+
 # ------------------------------------------------------------------ the row-major layout
 
 

@@ -22,17 +22,54 @@
 // Indices outside [0, rows) are clamped to the nearest row in modes 0
 // and 1, so the kernel never reads outside the table.
 //
-// Bound: bytes.  Each gathered row is read once (n * row_words * 4 B) and
-// each index once (4n B); one add a word.  XLA fuses the take into the
-// sum, so the TPU program writes no [n, row_words] gather, and neither
-// does this kernel.  Design: a group of lanes of one warp per index, 32
-// lanes for rows of 512 B and more, else the largest power of two of 16 B
-// vectors that a row holds, so every lane loads 16 B a step and the row's
-// vectors are adjacent in the group; a grid of at most 8 blocks of 256
-// threads an SM walks the indices.  The per-row mode meets a group's lanes
-// in xor shuffles and its first lane writes; the total modes keep a sum a
+// It stays a gather: every index's row is loaded, in the order of the
+// indices, and an index named again is loaded again.  No sort, histogram
+// or deduplication may replace that, though each would compute the same
+// sum: the port's tools measure the card with this kernel.
+// microbench_sorted_gather times random against sorted indices (a kernel
+// that reorders makes the two equal), and recalibrate_constants'
+// gather_scan turns its rows/s into the picker's cost of one k-mer's
+// gather and looks for a cliff across the L2 (find_cliff), which K2 meets
+// only because it makes one row load per k-mer in its own order.
+//
+// Bounds: bytes, one add a word.  The distinct-row bound reads each
+// distinct row once, and each index once: 0.0619 ms for 2^21 random 512 B
+// rows of a 200 MB table on an H100, which only a kernel that stops
+// gathering reaches.  The in-order floor holds for uniformly random,
+// independent indices (the timed shape's): a kernel that loads every
+// index's row in order through the 50 MB L2 finds a row there at most
+// L2 / table of the time, so it moves at least
+// max(distinct rows x row bytes, n x row bytes x (1 - L2 / table)) + 4n,
+// 0.2429 ms at that shape (ops/row_gather.py:in_order_floor_bytes).
+// Sorted or repeated indices hit the L2 more often, and for them only the
+// distinct-row term is a floor.  XLA fuses the take into the sum, so the
+// TPU program writes no [n, row_words] gather, and neither does this
+// kernel.
+//
+// Design: a group of lanes of one warp per index, 32 lanes for rows of
+// 512 B and more, else the largest power of two of 16 B vectors that a
+// row holds, so every lane loads 16 B a step and the row's vectors are
+// adjacent in the group; a grid of at most 8 blocks of 256 threads an SM
+// walks the indices, coming back after a grid stride of indices (8,448
+// at 512 B rows on 132 SMs, 270,336 at 16 B).  The per-row mode meets a group's lanes in xor
+// shuffles and its first lane writes; the total modes keep a sum a
 // thread, meet a warp's in shuffles and a block's in shared memory, and
 // add it to `out` with one unsigned atomic a block (wrapping is the spec).
+//
+// What holds it at the timed shape is device memory, not latency:
+// 0.2967-0.2976 ms on an H100 80GB HBM3 at 700 W, of which the in-order
+// floor is 82%.  At 800 MB, where the L2 can keep at most 6% of the
+// table, it draws >= 2.97 TB/s
+// from HBM; at that rate 0.297 ms moves 0.88 GB at 200 MB, so the L2
+// serves ~18% of the loads (~37 MB of the table kept), not the floor's
+// 25%.  Two redesigns were timed against it in turns and neither won by
+// 3% there: (a) indices staged a tile ahead by cp.async and 8 loads of
+// 16 B a lane sent before any add, 0.2941-0.3040 ms (__ldg or
+// ld.global.nc.L1::no_allocate), and (b) whole rows staged by TMA bulk
+// copies into a ring a warp, 0.2948-0.2954.  Both were 9-19% faster on
+// tables the L2 holds (8-40 MB), and (a) 14-27% faster on sorted
+// indices; the tools' measure is the random gather at the timed shape,
+// so this form stays (PERF.md, section 6, T1).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -100,15 +137,24 @@ __global__ void row_gather_kernel(const uint4* __restrict__ table, const int32_t
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
+// the card's SMs, asked of the runtime once; a failed call's error is
+// returned (and cleared, so that the next launch's cudaGetLastError does
+// not report it again), and asked again on the next launch
+cudaError_t sm_count(int& count) {
+  static int cached = 0;
+  if (cached == 0) {
     int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      count = 132;
+    int sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return err;
+    }
+    cached = sms;
   }
-  return count;
+  count = cached;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -119,13 +165,16 @@ extern "C" int xs_row_gather(const void* table, const void* idx, void* out, int6
       (mode == kWindow && (bound <= 0 || bound > rows)))
     return int(cudaErrorInvalidValue);
   if (n <= 0) return 0;
+  int sms = 0;
+  const cudaError_t err = sm_count(sms);
+  if (err != cudaSuccess) return int(err);
   const int row_vecs = row_words / 4;
   int group_log2 = 0;
   while (group_log2 < 5 && (2 << group_log2) <= row_vecs) ++group_log2;
   const int64_t per_warp = 32 >> group_log2;
   const int64_t warps = (n + per_warp - 1) / per_warp;
   int64_t grid = (warps + kWarps - 1) / kWarps;
-  const int64_t max_grid = int64_t(sm_count()) * kBlocksPerSm;
+  const int64_t max_grid = int64_t(sms) * kBlocksPerSm;
   if (grid > max_grid) grid = max_grid;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint4* t = static_cast<const uint4*>(table);

@@ -11,7 +11,11 @@ card's gather rate against row width, table size and index order.
 
 :func:`row_gather_plain` is the plain PyTorch version of the same
 function; the wrapper uses it only for tensors on the CPU, and counts
-its kernel launches in ``row_gather.launches``.
+its kernel launches in ``row_gather.launches``.  :func:`grid_stride`
+gives the step at which the kernel's grid walks the indices;
+:func:`in_order_floor_bytes` is the least HBM traffic of a kernel that
+keeps the gather's order on uniformly random indices, the bound that K9
+is held to beside the distinct-row bound.
 """
 
 import torch
@@ -20,6 +24,13 @@ from xspect2_tpu_torch.core.hashing import MASK32
 from xspect2_tpu_torch.ops import _kernels
 
 MODES = {"total": 0, "per_row": 1, "window": 2}
+# the H100's L2 (NVIDIA's data sheet)
+L2_BYTES = 50e6
+# the kernel's launch: blocks of THREADS_A_BLOCK threads, at most
+# BLOCKS_AN_SM of them an SM (kThreads and kBlocksPerSm in
+# csrc/row_gather.cu, which the tests read back)
+THREADS_A_BLOCK = 256
+BLOCKS_AN_SM = 8
 
 
 def _check(table, idx, mode, window):
@@ -113,6 +124,37 @@ def row_gather(
 
 
 row_gather.launches = 0
+
+
+def lanes_a_row(row_words: int) -> int:
+    """The lanes of a warp that share one row: 32 for rows of 512 B and
+    more, else the largest power of two of 16 B vectors a row holds."""
+    lanes = 1
+    while lanes < 32 and 2 * lanes <= row_words // 4:
+        lanes *= 2
+    return lanes
+
+
+def grid_stride(row_words: int, sms: int) -> int:
+    """The indices that the kernel's full grid takes a step of its walk
+    on a card of ``sms`` SMs, at rows of ``row_words`` words: the step at
+    which each warp comes back for its next indices."""
+    return sms * BLOCKS_AN_SM * THREADS_A_BLOCK // lanes_a_row(row_words)
+
+
+def in_order_floor_bytes(n: int, row_bytes: int, table_bytes: float, distinct_rows: int,
+                         l2_bytes: float = L2_BYTES) -> float:
+    """The least device-memory traffic of a kernel that loads every one of
+    ``n`` uniformly random, independent indices' rows, in the given order,
+    from a table of ``table_bytes`` through an L2 of ``l2_bytes``: each
+    distinct row at least once, and at least the share of the ``n`` loads
+    that the L2 cannot hold, ``n x row_bytes x (1 - L2 / table)``, since
+    a random row is in the L2 at most ``L2 / table`` of the time; then the
+    indices (4n B) and the 4 B sum.  The distinct-row bound is the first
+    term alone, and it is the only floor for sorted or repeated indices,
+    which hit the L2 more often."""
+    rows = max(distinct_rows * row_bytes, n * row_bytes * (1 - l2_bytes / table_bytes))
+    return rows + 4 * n + 4
 
 
 def as_uint32(x: torch.Tensor) -> int:
