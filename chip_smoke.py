@@ -80,7 +80,13 @@ width:
   100 MB, each variant timed beside its bound and beside K2 on the same
   table and reads; the port's ``tools/microbench_spmd.py`` (64 classes,
   32,768 reads: the single engine, then every coordinate of the 4x2 and
-  8x1 (data x cls) meshes in turn, K1 and K2, counts equal).
+  8x1 (data x cls) meshes in turn, K1 and K2, counts equal);
+- the SVM species head (K11, one launch a prediction on the card, one an
+  assembly on the records path): against its plain version for each
+  kernel type at the main path's head and on a 512-class head (phase 2),
+  then timed at the main path's head beside its plain version and an
+  empty launch of one block, and held against the CPU's head on
+  rows with a decision near zero (phase 6b).
 
 It checks the results against the host reference, checks which kernels
 each path launched, times each kernel against its bound and its plain
@@ -172,6 +178,7 @@ KERNELS = {
     "probe_select": ("xspect2_tpu_torch/csrc/probe_select.cu", "tools/microbench_pallas.py:74"),
     "row_gather": ("xspect2_tpu_torch/csrc/row_gather.cu", "tools/recalibrate_constants.py:50"),
     "body_variants": ("xspect2_tpu_torch/csrc/body_variants.cu", "tools/microbench_body.py:106"),
+    "svm_head": ("xspect2_tpu_torch/csrc/svm_head.cu", "xspect2_tpu/models/svm_head.py:104"),
 }
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, the granule of a
 # random HBM read, and the 32-bit non-tensor rate, above which the
@@ -324,10 +331,10 @@ def card_line(card: str) -> str:
 
 def wrapper(name: str):
     """The kernel wrapper ``name``, which carries the launch count."""
-    from xspect2_tpu_torch.ops import bloom, body_variants, probe_select, query, row_gather
+    from xspect2_tpu_torch.ops import bloom, body_variants, probe_select, query, row_gather, svm_head
 
     module = {"bloom_count": bloom, "xxh3_records_count": bloom, "probe_select": probe_select,
-              "row_gather": row_gather, "body_variants": body_variants}.get(name, query)
+              "row_gather": row_gather, "body_variants": body_variants, "svm_head": svm_head}.get(name, query)
     return getattr(module, name)
 
 
@@ -1526,6 +1533,7 @@ def run_records(rng, card, errors):
         require(got["records_wire"] == got["records_query"] > 0 and got["unpack_2bit"] == 0,
                 "the records path did not launch K4 once per batch (one K3 each) and K1 never")
         require(got["reads_query"] == 0, "the records path launched reads_query")
+        require(got["svm_head"] == HELD_OUT, "the species model did not launch K11 once an assembly")
         for name, v in got.items():
             launches[name] += v
         log(f"  end-to-end [{card}] species assemblies, step {step}: {HELD_OUT} assemblies "
@@ -2663,15 +2671,15 @@ def run_sharded_reads(kind, idx, reads, card, errors):
             "n_blk_2_ms": sum(out[2]) / 2}
 
 
-def run_sharded_records(asm, card, errors):
+def run_sharded_records(asm, card, errors, ptxas_log):
     """The 40-class table: 400,000 reads on 1x2 cls, 1x2 blk and 1x4 blk
     meshes, and one 4 Mbp assembly through the records step on 2x2 blk and
     2x2 cls meshes with the SVM head, every coordinate in turn, combined
     by hand: counts equal the single engine's, per-contig hits and total
     scores equal the single-device model's, the prediction is the source
-    class.  Then K3's time on one block shard and the head's time."""
+    class.  Then K3's time on one block shard and the head's (K11's) time
+    and near-zero checks (``ptxas_log``: K11's compiler output)."""
     from xspect2_tpu_torch.models.filter_model import _READS_PER_CHUNK
-    from xspect2_tpu_torch.models.svm_head import SVMHead
     from xspect2_tpu_torch.ops import query
     from xspect2_tpu_torch.parallel import BlockShardedClassifier, ShardedClassifier
     from xspect2_tpu_torch.tools.microbench_spmd import coordinate_mesh, every_coordinate
@@ -2737,34 +2745,111 @@ def run_sharded_records(asm, card, errors):
             f"{', '.join(f'{v:.4f}' for v in ms)} ms a shard, the whole table {whole_ms:.4f} ms")
         out[n_blk] = ms
     x = torch.tensor([[single["scores"]["total"][c] for c in names]], dtype=torch.float32, device="cuda")
-    calls = SVMHead.calls
-    head_ms = cuda_ms(lambda: head.predict_indices(x), 20)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    int(head.predict_indices(x)[0])
-    host_ms = (time.time() - t0) * 1e3
-    SVMHead.calls = calls  # timing is no prediction of the main path
+    head_timing = time_svm_head(head, x, card, errors, ptxas_log)
+    return {"n_blk": 4, "ms": sum(out[4]) / 4, "max_ms": max(out[4]), "unsharded_ms": whole_ms,
+            "n_blk_2_ms": sum(out[2]) / 2}, head_timing
+
+
+def time_svm_head(head, x, card, errors, ptxas_log):
+    """K11 at the main path's head and row ``x``: its call time (``ms``)
+    and device-only time beside the plain version's (the torch path the
+    head took before K11) and beside an empty kernel launched on K11's
+    block of one row (the floor a single call can reach); the median host clock of
+    one call with its fetch; the bytes bound; the registers ``-Xptxas
+    -v`` gave each instantiation.  Then both near-zero checks, through
+    K11.  Timing calls are no predictions of the main path."""
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.ops import svm_head as sh
+
+    calls, launches = SVMHead.calls, sh.svm_head.launches
+    k11 = timed(lambda: head.predict_indices(x), 200)
+    plain = timed(lambda: sh.svm_head_plain(head, x), 200)
+    floor = timed(sh.empty_launch, 200)
+    host = {}
+    for name, fn in (("kernel", lambda: head.predict_indices(x)), ("plain", lambda: sh.svm_head_plain(head, x)[0])):
+        ms = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            int(fn()[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        host[name] = float(np.median(ms))
+    SVMHead.calls, sh.svm_head.launches = calls, launches
     # the head's bound: the fitted parameters (support vectors, dual
     # coefficients, intercepts) and the scores read once, the index written;
     # operations on the same basis: the kernel row, each support vector's
-    # coefficients, one sign and one vote a pair (``coef`` and the vote
-    # matrices are the head's own layout of the parameters, not work)
+    # coefficients, one sign and one vote a pair (``coef``, ``sv_sq``,
+    # ``starts`` and the vote matrices are the head's own layouts of the
+    # parameters, not work)
     n_sv = int(head.support_vectors.shape[0])
     head_bytes = sum(b.numel() * b.element_size() for b in (head.support_vectors, head.dual_coef, head.intercept))
-    head_bytes += x.numel() * 4 + 8
+    head_bytes += x.numel() * x.element_size() + 8 * x.shape[0]
     head_flops = 3 * n_sv * x.shape[1] + 2 * n_sv * (len(head.classes) - 1) + 2 * len(head.pairs)
     head_bound = max(head_bytes / HBM_BYTES_PER_S, head_flops / INT_OPS_PER_S) * 1e3
+    registers, fn = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"svm_head_kernelI([fd])E", line)
+        if m:
+            fn = {"f": "float32", "d": "float64"}[m.group(1)]
+        elif fn is not None and "registers" in line:
+            registers[fn] = int(re.search(r"Used (\d+) registers", line).group(1))
+            fn = None
+    log(f"  timing [{card}] K11 svm_head ({len(head.classes)} classes, {len(head.pairs)} pairs, {n_sv} support "
+        f"vectors, {x.shape[1]} float32 scores, one row): {ms_text(k11)}; plain version {ms_text(plain)}; an empty "
+        f"kernel on K11's block {ms_text(floor)}; host clock of one call with its fetch (median of 21) "
+        f"{host['kernel']:.4f} ms, plain {host['plain']:.4f} ms; bound {head_bound:.6f} ms ({head_bytes} B once, "
+        f"~{head_flops} operations at the 67 T/s rate); registers {registers} (ptxas)")
     near = {"main_head": check_head_near_zero(head, "the main path's head", tie=1e-12),
             "fitted_head": check_head_near_zero(fitted_head(len(head.classes)), "a fitted head without ties")}
     SVMHead.calls = calls
-    head_timing = {"ms_per_call": head_ms, "host_ms_per_call": host_ms, "bound_ms": head_bound,
-                   "classes": len(head.classes), "pairs": len(head.pairs), "support_vectors": n_sv, "near_zero": near}
-    log(f"  timing [{card}] SVMHead.predict_indices ({len(head.classes)} classes, {len(head.pairs)} pairs, "
-        f"{n_sv} support vectors, float64 torch products over all pairs at once): {head_ms:.4f} ms a call between "
-        f"CUDA events, {host_ms:.4f} ms on the host clock for one call with its fetch; bound {head_bound:.6f} ms "
-        f"({head_bytes} B once, ~{head_flops} operations at the 67 T/s rate)")
-    return {"n_blk": 4, "ms": sum(out[4]) / 4, "max_ms": max(out[4]), "unsharded_ms": whole_ms,
-            "n_blk_2_ms": sum(out[2]) / 2}, head_timing
+    errors["svm_head"] = max(errors["svm_head"], *(v["max_abs_err"] for v in near.values()))
+    return dict(k11, plain_ms=plain["ms"], plain_device_ms=plain["device_ms"], bound_ms=head_bound, bound_by="bytes",
+                launch_floor_ms=floor["ms"], launch_floor_device_ms=floor["device_ms"],
+                host_ms_per_call=host["kernel"], plain_host_ms_per_call=host["plain"], registers=registers,
+                classes=len(head.classes), pairs=len(head.pairs), support_vectors=n_sv, near_zero=near)
+
+
+def check_svm_head_kernel(errors):
+    """K11 against its plain version on the card: heads fitted by the
+    port's libsvm solver at the main path's shape (40 classes, 2 score
+    rows a class, 40 scores) for each kernel type, and a seeded rbf head of
+    512 classes (one support vector a class, 512 scores, 130,816 pairs);
+    1, 7 and 10,000 rows (1 and 7 at 512 classes) in float32 and float64.
+    Decisions within 1e-12, indices equal on the rows (at least 99%) whose
+    decisions all lie 1e-9 from zero, one launch a call."""
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.ops import svm_head as sh
+
+    rng = np.random.default_rng(17)
+    heads = {kernel: fitted_head(ASM_CLASSES, per=2, kernel=kernel) for kernel in ("linear", "rbf", "poly", "sigmoid")}
+    pairs = 512 * 511 // 2
+    heads["rbf, 512 classes"] = SVMHead(
+        rng.random((512, 512)), rng.uniform(-1, 1, (511, 512)), rng.uniform(-0.5, 0.5, pairs), [1] * 512,
+        [f"c{i:03d}" for i in range(512)], "rbf", 1 / 512).cuda()
+    for name, head in heads.items():
+        n_features = head.support_vectors.shape[1]
+        worst, rows = 0.0, 0
+        for n in ((1, 7) if "512" in name else (1, 7, 10_000)):
+            x = np.clip(rng.normal(0.05, 0.02, (n, n_features)), 0, 1)
+            x[np.arange(n), rng.integers(0, n_features, n)] = rng.uniform(0.4, 0.6, n)
+            for dtype in (torch.float32, torch.float64):
+                xt = torch.from_numpy(x).to("cuda", dtype)
+                want_pred, want_dec = sh.svm_head_plain(head, xt, decisions=True)
+                before = sh.svm_head.launches
+                pred, dec = sh.svm_head(head, xt, decisions=True)
+                torch.cuda.synchronize()
+                require(sh.svm_head.launches == before + 1, f"svm_head ({name}): not one launch a call")
+                err = float((dec - want_dec).abs().max())
+                settled = (want_dec.abs() > 1e-9).all(dim=1)
+                worst, rows = max(worst, err), rows + n
+                require(err <= 1e-12 and int(settled.sum()) >= n - n // 100
+                        and torch.equal(pred[settled], want_pred[settled]),
+                        f"svm_head ({name}, n={n}, {dtype}) disagrees with its plain version: decisions off by "
+                        f"{err}, {int(settled.sum())} settled rows of {n}")
+        errors["svm_head"] = max(errors["svm_head"], worst)
+        log(f"  svm_head vs plain, {name} ({len(head.classes)} classes, {int(head.support_vectors.shape[0])} "
+            f"support vectors): {rows} rows in float32 and float64, decisions within {worst:.3e}, indices equal")
+    del heads
 
 
 def settled_rows(head, dec: torch.Tensor, tie: float) -> torch.Tensor:
@@ -2783,8 +2868,8 @@ def settled_rows(head, dec: torch.Tensor, tie: float) -> torch.Tensor:
     return beats.all(dim=1)
 
 
-def fitted_head(n_classes, per=5, seed=12):
-    """An rbf head fitted by the port's libsvm solver on seeded
+def fitted_head(n_classes, per=5, seed=12, kernel="rbf"):
+    """A head fitted by the port's libsvm solver on seeded
     hundredth-rounded score rows (own class 0.4-0.6, the rest ~0.05): its
     support vectors and intercepts are all distinct, so no decision is
     an exact tie and every near-zero row must predict the same on the
@@ -2795,7 +2880,7 @@ def fitted_head(n_classes, per=5, seed=12):
     y = np.repeat(np.arange(n_classes), per)
     x = np.clip(rng.normal(0.05, 0.02, (len(y), n_classes)), 0, 1)
     x[np.arange(len(y)), y] = rng.uniform(0.4, 0.6, len(y))
-    return fit_ovo_svc(np.round(x, 2), [f"c{v:02d}" for v in y], "rbf", 1.0).cuda()
+    return fit_ovo_svc(np.round(x, 2), [f"c{v:02d}" for v in y], kernel, 1.0).cuda()
 
 
 def per_pair_decisions(head, x: torch.Tensor) -> torch.Tensor:
@@ -2803,8 +2888,10 @@ def per_pair_decisions(head, x: torch.Tensor) -> torch.Tensor:
     its batched form and as the JAX head does: class i's segment against
     ``dual_coef[j - 1]``, class j's against ``dual_coef[i]``, the
     intercept."""
+    from xspect2_tpu_torch.ops.svm_head import kernel_row_plain
+
     x = x.to(device=head.support_vectors.device, dtype=torch.float64)
-    km = head._kernel_matrix(x)
+    km = kernel_row_plain(head, x)
     starts = np.concatenate([[0], np.cumsum(head.n_support)])
     return torch.stack([
         km[:, starts[i]:starts[i + 1]] @ head.dual_coef[j - 1, starts[i]:starts[i + 1]]
@@ -2843,8 +2930,9 @@ def check_head_near_zero(head, what, tie=None, want=100, chunk=10_000, max_chunk
     passes a ``tie``: its sign is rounding noise on either device, so rows
     whose prediction a decision within ``tie`` of zero could change are
     counted and left out, and the rest must have a decision between
-    ``tie`` and 2e-5."""
+    ``tie`` and 2e-5.  The card's calls go through K11, one launch each."""
     from xspect2_tpu_torch.models.svm_head import SVMHead
+    from xspect2_tpu_torch.ops.svm_head import svm_head
 
     cpu = SVMHead(
         head.support_vectors.cpu().numpy(), head.dual_coef.cpu().numpy(), head.intercept.cpu().numpy(),
@@ -2877,10 +2965,12 @@ def check_head_near_zero(head, what, tie=None, want=100, chunk=10_000, max_chunk
     rows = np.concatenate(near)[:2000]
     require(len(rows) >= want, f"SVM head ({what}): only {len(rows)} near-zero rows in {drawn} drawn")
     want_dec = cpu.decision_values(torch.from_numpy(rows))
+    launches = svm_head.launches
     got_dec = head.decision_values(torch.from_numpy(rows).cuda()).cpu()
     err = float((got_dec - want_dec).abs().max())
     same = bool(torch.equal(head.predict_indices(torch.from_numpy(rows).cuda()).cpu(),
                             cpu.predict_indices(torch.from_numpy(rows))))
+    require(svm_head.launches == launches + 2, f"SVM head ({what}): the card's calls did not go through K11")
     require(err < 1e-12 and same, f"SVM head ({what}) on the card: decisions off by {err} or predictions differ "
             "from the CPU's on near-zero rows")
     mag = want_dec.abs()
@@ -4037,6 +4127,7 @@ def main() -> int:
     check_records_kernels(rng, errors)
     check_multi_kernels(rng, errors)
     check_sharded_kernels(rng, errors)
+    check_svm_head_kernel(errors)
 
     log("phase 3: species reads, 8 classes x 4 Mbp")
     genomes = rng.integers(0, 4, size=(8, 4_000_000), dtype=np.uint8)
@@ -4071,7 +4162,7 @@ def main() -> int:
         "train_from_directory, then 20 assemblies at steps 1 and 4")
     rec_launches, rec_timings, asm = run_records(rng, card, errors)
     log("phase 6b: the 40-class table on (data x cls) and (data x blk) meshes, every shard in turn on this card")
-    k3_sharded, head_timing = run_sharded_records(asm, card, errors)
+    k3_sharded, head_timing = run_sharded_records(asm, card, errors, build_logs["svm_head"])
     log("phase 6c: both sharded classifiers through their public methods, NCCL at world size 1")
     nccl_launches, k2_nccl = run_nccl_world_of_one(asm, card)
     log(f"phase 6d: validation, {VAL_MAJORITY + VAL_CLUSTERED + VAL_SPREAD} reads through classify_species("
@@ -4118,7 +4209,8 @@ def main() -> int:
                       library_ms=None,
                       variants=body_timings)
     all_timings = {**rec_timings, **timings, **mlst_timings, **x_timings, **p_timings, "row_gather": k9_timing,
-                   "body_variants": k10_timing}
+                   "body_variants": k10_timing,
+                   "svm_head": {k: v for k, v in head_timing.items() if k != "near_zero"}}
     all_timings["reads_query"]["block_sharded"] = k2_sharded
     # K2 over its launches of the run at their own shapes (species, genus,
     # the NCCL runs, the microbenchmark): time less bound, summed
@@ -4170,7 +4262,8 @@ def main() -> int:
         f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
         f"chunk of 8,192 reads, row_gather at {CALIBRATION_N} indices of 512 B rows on a {CALIBRATION_TABLE_MB} MB "
         f"table, body_variants (current; every variant under variants) at microbench_body's 65,536 reads on a "
-        f"{BODY_TABLE_MB[0]:g} MB table; "
+        f"{BODY_TABLE_MB[0]:g} MB table, svm_head at the main path's head on one row of 40 scores (its "
+        f"launches: one a prediction on the card); "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

@@ -912,3 +912,96 @@ def test_body_variants_launch_fits_every_read_length(cuda_device, variant):
     reads = torch.from_numpy(rng.integers(0, 4, size=(100, 150), dtype=np.uint8)).to(cuda_device)
     bv.body_variants(variant, reads, t, num_classes=8, num_hashes=3, reads_per_chunk=64)
     assert bv.launch_config(variant, 150, 8, cuda_device) == before
+
+
+SVM_KERNELS = ["linear", "rbf", "poly", "sigmoid"]
+
+
+def _random_head(rng, kernel, n_classes, per_class, n_features, device, n_sv=None):
+    """An ``SVMHead`` of seeded parameters: support vectors of scores in
+    [0, 1), ``per_class`` a class, dual coefficients in [-1, 1],
+    intercepts in [-0.5, 0.5], gamma 1 / n_features, coef0 0.5.  With
+    ``n_sv``, the first class holds all but one support vector a class
+    and 8 of its dual coefficients are not zero, so that both versions
+    sum the same few terms however many support vectors there are."""
+    from xspect2_tpu_torch.models.svm_head import SVMHead
+
+    n_support = [per_class] * n_classes if n_sv is None else [n_sv - n_classes + 1] + [1] * (n_classes - 1)
+    total = sum(n_support)
+    dual = rng.uniform(-1, 1, (n_classes - 1, total))
+    if n_sv is not None:
+        dual[:, : n_support[0]] *= np.isin(np.arange(n_support[0]), rng.choice(n_support[0], 8, replace=False))
+    head = SVMHead(
+        rng.random((total, n_features)), dual,
+        rng.uniform(-0.5, 0.5, n_classes * (n_classes - 1) // 2), n_support,
+        [f"c{i:03d}" for i in range(n_classes)], kernel, gamma=1.0 / n_features, degree=3, coef0=0.5,
+    )
+    return head.to(device)
+
+
+def _check_svm_head(head, x, min_settled):
+    """K11 against its plain version on rows ``x``: decisions within
+    1e-12, indices equal on rows with every decision 1e-9 from zero (at
+    least ``min_settled`` of them), one launch a call."""
+    from xspect2_tpu_torch.ops import svm_head as sh
+
+    want_pred, want_dec = sh.svm_head_plain(head, x, decisions=True)
+    before = sh.svm_head.launches
+    pred = head.predict_indices(x)
+    dec = head.decision_values(x)
+    assert sh.svm_head.launches == before + 2
+    both = sh.svm_head(head, x, decisions=True)
+    assert sh.svm_head.launches == before + 3
+    assert pred.dtype == torch.int64 and pred.shape == (x.shape[0],)
+    assert dec.dtype == torch.float64 and dec.shape == want_dec.shape
+    assert float((dec - want_dec).abs().max()) < 1e-12
+    assert torch.equal(both[0], pred) and torch.equal(both[1], dec)
+    settled = (want_dec.abs() > 1e-9).all(dim=1)
+    assert int(settled.sum()) >= min_settled
+    assert torch.equal(pred[settled], want_pred[settled])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SVM_KERNELS)
+@pytest.mark.parametrize("n", [1, 7, 10_000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_svm_head_kernel_matches_plain(cuda_device, kernel, n, dtype):
+    """K11 at the smoke's head shape (40 classes, 2 support vectors a
+    class, 40 scores), on contiguous rows and on a view whose rows lie
+    48 apart, as the sharded step hands it a slice of its scores."""
+    rng = np.random.default_rng(n + 10 * SVM_KERNELS.index(kernel))
+    head = _random_head(rng, kernel, 40, 2, 40, cuda_device)
+    wide = torch.from_numpy(rng.random((n, 48))).to(cuda_device, dtype)
+    for x in (wide[:, :40].contiguous(), wide[:, :40]):
+        _check_svm_head(head, x, n - n // 100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SVM_KERNELS)
+def test_svm_head_kernel_at_512_classes(cuda_device, kernel):
+    """130,816 pairs a row: the threads' pair walk covers more than 500
+    pairs each."""
+    rng = np.random.default_rng(512 + SVM_KERNELS.index(kernel))
+    head = _random_head(rng, kernel, 512, 1, 512, cuda_device)
+    x = torch.from_numpy(rng.random((7, 512))).to(cuda_device, torch.float32)
+    _check_svm_head(head, x, 6)
+
+
+@pytest.mark.cuda
+def test_svm_head_kernel_at_the_shared_memory_limit(cuda_device):
+    """The most support vectors the card's opt-in shared memory holds run
+    (above the 48 KB a block gets by default), one more raises
+    ``ValueError`` before any launch."""
+    from xspect2_tpu_torch.ops import svm_head as sh
+
+    rng = np.random.default_rng(3)
+    optin = sh.opt_in_bytes(cuda_device)
+    most = (optin - 8 * 40 - 4 * 2) // 8
+    assert most > 48 * 1024 // 8
+    x = torch.from_numpy(rng.random((7, 40))).to(cuda_device)
+    _check_svm_head(_random_head(rng, "rbf", 2, 0, 40, cuda_device, n_sv=most), x, 6)
+    head = _random_head(rng, "rbf", 2, 0, 40, cuda_device, n_sv=most + 1)
+    before = sh.svm_head.launches
+    with pytest.raises(ValueError, match=f"limit of {optin} B"):
+        head.predict_indices(x)
+    assert sh.svm_head.launches == before

@@ -1,15 +1,16 @@
-"""SVM species head: a fitted one-vs-one SVC evaluated with PyTorch.
+"""SVM species head: a fitted one-vs-one SVC evaluated on the card.
 
 The JAX package fits an ``sklearn.svm.SVC`` on ``scores.csv`` and
 predicts with sklearn in float64.  The port does not depend on sklearn:
 :func:`fit_ovo_svc` fits the same machine with libsvm's solver written
 out in numpy, and :class:`SVMHead` carries the fitted parameters onto
-the device and reproduces libsvm's one-vs-one voting in float64.  The
-head's matrix products are plain ``torch.matmul``: it is a few small
-dense products and has no kernel of its own.  Every class pair's
-decision comes out of the same two products over a coefficient matrix
-per side of the pair (:class:`SVMHead`), so a call makes the same few
-launches however many pairs there are.
+the device and reproduces libsvm's one-vs-one voting in float64.  On a
+CUDA tensor a prediction is one launch of kernel K11
+(:func:`xspect2_tpu_torch.ops.svm_head.svm_head`, ``csrc/svm_head.cu``):
+kernel row, every pair's decision, votes and the first class with the
+most votes.  On the CPU the head runs K11's plain version, a few dense
+products over a coefficient matrix per side of the pair, the same few
+ops however many pairs there are.
 """
 
 import math
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from xspect2_tpu_torch.ops.svm_head import svm_head
 
 # libsvm's stand-in for a non-positive quadratic coefficient
 _TAU = 1e-12
@@ -282,8 +284,11 @@ class SVMHead(nn.Module):
     ``SVMHead.calls`` counts the predictions made, over all heads.
 
     The pair (i, j) at column p sums class i's support vectors against
-    ``dual_coef[j - 1]`` and class j's against ``dual_coef[i]``.  The
-    float64 buffer ``coef`` ([n_sv, n_pairs]) holds those coefficients in
+    ``dual_coef[j - 1]`` and class j's against ``dual_coef[i]``.  K11
+    reads them there, with each class's first support vector from the
+    int32 buffer ``starts`` and the support vectors' squared norms from
+    ``sv_sq``, both made once here.  The plain version reads the float64
+    buffer ``coef`` ([n_sv, n_pairs]), which holds those coefficients in
     column p, in the rows of class i's and class j's segment, and zeros
     elsewhere, so that the decisions of every pair are
     ``km @ coef + intercept``, one accumulator over both segments as
@@ -308,10 +313,13 @@ class SVMHead(nn.Module):
         if kernel not in ("linear", "rbf", "poly", "sigmoid"):
             raise ValueError(f"Unsupported kernel {kernel}")
         f64 = torch.float64
-        self.register_buffer("support_vectors", torch.as_tensor(np.asarray(support_vectors), dtype=f64))
-        self.register_buffer("dual_coef", torch.as_tensor(np.asarray(dual_coef), dtype=f64))
-        self.register_buffer("intercept", torch.as_tensor(np.asarray(intercept), dtype=f64))
+        for name, value in (("support_vectors", support_vectors), ("dual_coef", dual_coef),
+                            ("intercept", intercept)):
+            self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(value), dtype=f64))
+        self.register_buffer("sv_sq", (self.support_vectors**2).sum(dim=1))
         self.n_support = [int(v) for v in np.asarray(n_support)]
+        starts = np.concatenate([[0], np.cumsum(self.n_support)]).astype(np.int32)
+        self.register_buffer("starts", torch.from_numpy(starts))
         self.classes = list(classes)
         self.kernel = kernel
         self.gamma = float(gamma)
@@ -348,22 +356,18 @@ class SVMHead(nn.Module):
             coef0=float(svc.coef0),
         )
 
-    def _kernel_matrix(self, x: torch.Tensor) -> torch.Tensor:
-        sv = self.support_vectors
-        if self.kernel == "linear":
-            return x @ sv.T
-        if self.kernel == "rbf":
-            d2 = (x**2).sum(dim=1)[:, None] + (sv**2).sum(dim=1)[None, :] - 2.0 * (x @ sv.T)
-            return torch.exp(-self.gamma * d2)
-        if self.kernel == "poly":
-            return (self.gamma * (x @ sv.T) + self.coef0) ** self.degree
-        return torch.tanh(self.gamma * (x @ sv.T) + self.coef0)
+    def _rows(self, x) -> torch.Tensor:
+        """``x`` as a float32 or float64 tensor on the head's device (a
+        list or array of Python floats as float64)."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        if x.dtype not in (torch.float32, torch.float64):
+            x = x.to(torch.float64)
+        return x.to(self.support_vectors.device)
 
     def decision_values(self, x) -> torch.Tensor:
         """OvO decision values [n_samples, n_pairs] in libsvm pair order."""
-        x = torch.as_tensor(x, dtype=torch.float64, device=self.support_vectors.device)
-        km = self._kernel_matrix(x)
-        return km @ self.coef + self.intercept
+        return svm_head(self, self._rows(x), predict=False, decisions=True)[1]
 
     def predict_indices(self, x) -> torch.Tensor:
         """Predicted class indices (into ``classes``) per sample, as a
@@ -371,10 +375,7 @@ class SVMHead(nn.Module):
         step that scores on the device stays there.  ``x`` may be float32
         scores; the decision values are computed in float64."""
         SVMHead.calls += 1
-        pos = (self.decision_values(x) > 0).to(torch.float64)
-        votes = pos @ self.w_pos + (1 - pos) @ self.w_neg
-        # torch.argmax returns the first maximal index, libsvm's tie rule
-        return torch.argmax(votes, dim=1)
+        return svm_head(self, self._rows(x))[0]
 
     def forward(self, x) -> torch.Tensor:
         """:meth:`predict_indices`."""
