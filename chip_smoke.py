@@ -2751,72 +2751,92 @@ def run_sharded_records(asm, card, errors, ptxas_log):
 
 
 def time_svm_head(head, x, card, errors, ptxas_log):
-    """K11 at the main path's head and row ``x``: its call time (``ms``)
-    and device-only time beside the plain version's (the torch path the
-    head took before K11) and beside an empty kernel launched on K11's
-    block of one row (the floor a single call can reach); the median host clock of
-    one call with its fetch; the bytes bound; the registers ``-Xptxas
-    -v`` gave each instantiation.  Then both near-zero checks, through
-    K11.  Timing calls are no predictions of the main path."""
+    """K11 at the main path's head and row ``x``, in the form its plan
+    picks (through ``predict_indices``, as the main path calls it) and in
+    each form forced (``forms``): its call time (``ms``) and device-only
+    time beside the plain version's (the torch path the head took before
+    K11) and beside an empty kernel launched on K11's block of one row
+    (the floor a single call can reach); the median host clock of one
+    call with its fetch; the bytes bound; the registers and spilled bytes
+    ``-Xptxas -v`` gave each instantiation (score type and form).  Then
+    both near-zero checks, through K11.  Timing calls are no predictions
+    of the main path."""
     from xspect2_tpu_torch.models.svm_head import SVMHead
     from xspect2_tpu_torch.ops import svm_head as sh
 
-    calls, launches = SVMHead.calls, sh.svm_head.launches
-    k11 = timed(lambda: head.predict_indices(x), 200)
-    plain = timed(lambda: sh.svm_head_plain(head, x), 200)
-    floor = timed(sh.empty_launch, 200)
-    host = {}
-    for name, fn in (("kernel", lambda: head.predict_indices(x)), ("plain", lambda: sh.svm_head_plain(head, x)[0])):
+    def host_ms(fn):
         ms = []
         for _ in range(21):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             int(fn()[0])
             ms.append((time.perf_counter() - t0) * 1e3)
-        host[name] = float(np.median(ms))
+        return float(np.median(ms))
+
+    calls, launches = SVMHead.calls, sh.svm_head.launches
+    k11 = timed(lambda: head.predict_indices(x), 200)
+    form = head.k11_plan.form
+    forms = {}
+    for each in ("staged", "global"):
+        call = (lambda f=each: sh.svm_head(head, x, form=f)[0])
+        forms[each] = dict(timed(call, 200), host_ms_per_call=host_ms(call))
+    plain = timed(lambda: sh.svm_head_plain(head, x), 200)
+    floor = timed(sh.empty_launch, 200)
+    host = {"kernel": host_ms(lambda: head.predict_indices(x)), "plain": host_ms(lambda: sh.svm_head_plain(head, x)[0])}
     SVMHead.calls, sh.svm_head.launches = calls, launches
     # the head's bound: the fitted parameters (support vectors, dual
     # coefficients, intercepts) and the scores read once, the index written;
     # operations on the same basis: the kernel row, each support vector's
     # coefficients, one sign and one vote a pair (``coef``, ``sv_sq``,
-    # ``starts`` and the vote matrices are the head's own layouts of the
-    # parameters, not work)
+    # ``starts``, the packed head's pair table and the vote matrices are the
+    # head's own layouts of the parameters, not work)
     n_sv = int(head.support_vectors.shape[0])
     head_bytes = sum(b.numel() * b.element_size() for b in (head.support_vectors, head.dual_coef, head.intercept))
     head_bytes += x.numel() * x.element_size() + 8 * x.shape[0]
     head_flops = 3 * n_sv * x.shape[1] + 2 * n_sv * (len(head.classes) - 1) + 2 * len(head.pairs)
     head_bound = max(head_bytes / HBM_BYTES_PER_S, head_flops / INT_OPS_PER_S) * 1e3
-    registers, fn = {}, None
+    registers, spills, fn = {}, {}, None
     for line in ptxas_log.splitlines():
-        m = re.search(r"svm_head_kernelI([fd])E", line)
+        m = re.search(r"svm_head_kernelI([fd])Li([01])E", line)
         if m:
-            fn = {"f": "float32", "d": "float64"}[m.group(1)]
+            dtype = {"f": "float32", "d": "float64"}[m.group(1)]
+            fn = f"{dtype} {('staged', 'global')[int(m.group(2))]}"
+        elif fn is not None and "spill stores" in line:
+            spills[fn] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", line))
         elif fn is not None and "registers" in line:
             registers[fn] = int(re.search(r"Used (\d+) registers", line).group(1))
             fn = None
+    plan = head.k11_plan
     log(f"  timing [{card}] K11 svm_head ({len(head.classes)} classes, {len(head.pairs)} pairs, {n_sv} support "
-        f"vectors, {x.shape[1]} float32 scores, one row): {ms_text(k11)}; plain version {ms_text(plain)}; an empty "
-        f"kernel on K11's block {ms_text(floor)}; host clock of one call with its fetch (median of 21) "
-        f"{host['kernel']:.4f} ms, plain {host['plain']:.4f} ms; bound {head_bound:.6f} ms ({head_bytes} B once, "
-        f"~{head_flops} operations at the 67 T/s rate); registers {registers} (ptxas)")
+        f"vectors, {x.shape[1]} float32 scores, one row; the plan's form {form!r}, {plan.struct.staged_smem} B of "
+        f"shared memory staged, {plan.struct.global_smem} B global): {ms_text(k11)}; "
+        + "; ".join(f"{f} form {ms_text(t)}, host clock {t['host_ms_per_call']:.4f} ms" for f, t in forms.items())
+        + f"; plain version {ms_text(plain)}; an empty kernel on K11's block {ms_text(floor)}; host clock of one "
+        f"call with its fetch (median of 21) {host['kernel']:.4f} ms, plain {host['plain']:.4f} ms; bound "
+        f"{head_bound:.6f} ms ({head_bytes} B once, ~{head_flops} operations at the 67 T/s rate); registers "
+        f"{registers}, spilled bytes {spills} (ptxas)")
     near = {"main_head": check_head_near_zero(head, "the main path's head", tie=1e-12),
             "fitted_head": check_head_near_zero(fitted_head(len(head.classes)), "a fitted head without ties")}
     SVMHead.calls = calls
     errors["svm_head"] = max(errors["svm_head"], *(v["max_abs_err"] for v in near.values()))
     return dict(k11, plain_ms=plain["ms"], plain_device_ms=plain["device_ms"], bound_ms=head_bound, bound_by="bytes",
                 launch_floor_ms=floor["ms"], launch_floor_device_ms=floor["device_ms"],
-                host_ms_per_call=host["kernel"], plain_host_ms_per_call=host["plain"], registers=registers,
-                classes=len(head.classes), pairs=len(head.pairs), support_vectors=n_sv, near_zero=near)
+                host_ms_per_call=host["kernel"], plain_host_ms_per_call=host["plain"], form=form, forms=forms,
+                registers=registers, spilled_bytes=spills, classes=len(head.classes), pairs=len(head.pairs),
+                support_vectors=n_sv, near_zero=near)
 
 
 def check_svm_head_kernel(errors):
-    """K11 against its plain version on the card: heads fitted by the
-    port's libsvm solver at the main path's shape (40 classes, 2 score
-    rows a class, 40 scores) for each kernel type, and a seeded rbf head of
-    512 classes (one support vector a class, 512 scores, 130,816 pairs);
-    1, 7 and 10,000 rows (1 and 7 at 512 classes) in float32 and float64.
-    Decisions within 1e-12, indices equal on the rows (at least 99%) whose
-    decisions all lie 1e-9 from zero, one launch a call."""
+    """K11 against its plain version on the card, in both forms: heads
+    fitted by the port's libsvm solver at the main path's shape (40
+    classes, 2 score rows a class, 40 scores) for each kernel type, in the
+    staged form their plans pick and in the global form forced, and a
+    seeded rbf head of 512 classes (one support vector a class, 512
+    scores, 130,816 pairs, ~7 MB packed) in the global form its plan
+    picks; 1, 7 and 10,000 rows in float32 and float64, the plain version
+    in chunks of 1,000 rows.  Decisions within 1e-12, indices equal on the
+    rows (at least 99%) whose decisions all lie 1e-9 from zero, one launch
+    a call."""
     from xspect2_tpu_torch.models.svm_head import SVMHead
     from xspect2_tpu_torch.ops import svm_head as sh
 
@@ -2828,27 +2848,36 @@ def check_svm_head_kernel(errors):
         [f"c{i:03d}" for i in range(512)], "rbf", 1 / 512).cuda()
     for name, head in heads.items():
         n_features = head.support_vectors.shape[1]
-        worst, rows = 0.0, 0
-        for n in ((1, 7) if "512" in name else (1, 7, 10_000)):
-            x = np.clip(rng.normal(0.05, 0.02, (n, n_features)), 0, 1)
-            x[np.arange(n), rng.integers(0, n_features, n)] = rng.uniform(0.4, 0.6, n)
-            for dtype in (torch.float32, torch.float64):
-                xt = torch.from_numpy(x).to("cuda", dtype)
-                want_pred, want_dec = sh.svm_head_plain(head, xt, decisions=True)
-                before = sh.svm_head.launches
-                pred, dec = sh.svm_head(head, xt, decisions=True)
-                torch.cuda.synchronize()
-                require(sh.svm_head.launches == before + 1, f"svm_head ({name}): not one launch a call")
-                err = float((dec - want_dec).abs().max())
-                settled = (want_dec.abs() > 1e-9).all(dim=1)
-                worst, rows = max(worst, err), rows + n
-                require(err <= 1e-12 and int(settled.sum()) >= n - n // 100
-                        and torch.equal(pred[settled], want_pred[settled]),
-                        f"svm_head ({name}, n={n}, {dtype}) disagrees with its plain version: decisions off by "
-                        f"{err}, {int(settled.sum())} settled rows of {n}")
-        errors["svm_head"] = max(errors["svm_head"], worst)
-        log(f"  svm_head vs plain, {name} ({len(head.classes)} classes, {int(head.support_vectors.shape[0])} "
-            f"support vectors): {rows} rows in float32 and float64, decisions within {worst:.3e}, indices equal")
+        picked = "global" if "512" in name else "staged"
+        for form in ((None,) if "512" in name else (None, "global")):
+            worst, rows = 0.0, 0
+            for n in (1, 7, 10_000):
+                x = np.clip(rng.normal(0.05, 0.02, (n, n_features)), 0, 1)
+                x[np.arange(n), rng.integers(0, n_features, n)] = rng.uniform(0.4, 0.6, n)
+                for dtype in (torch.float32, torch.float64):
+                    xt = torch.from_numpy(x).to("cuda", dtype)
+                    before = sh.svm_head.launches
+                    pred, dec = sh.svm_head(head, xt, decisions=True, form=form)
+                    torch.cuda.synchronize()
+                    require(sh.svm_head.launches == before + 1, f"svm_head ({name}): not one launch a call")
+                    require(head.k11_plan.form == picked, f"svm_head ({name}): the plan picked {head.k11_plan.form}")
+                    err, settled, same = 0.0, 0, True
+                    for a in range(0, n, 1000):
+                        want_pred, want_dec = sh.svm_head_plain(head, xt[a:a + 1000], decisions=True)
+                        err = max(err, float((dec[a:a + 1000] - want_dec).abs().max()))
+                        ok = (want_dec.abs() > 1e-9).all(dim=1)
+                        settled += int(ok.sum())
+                        same = same and torch.equal(pred[a:a + 1000][ok], want_pred[ok])
+                        del want_pred, want_dec
+                    del pred, dec
+                    worst, rows = max(worst, err), rows + n
+                    require(err <= 1e-12 and settled >= n - n // 100 and same,
+                            f"svm_head ({name}, {form or picked} form, n={n}, {dtype}) disagrees with its plain "
+                            f"version: decisions off by {err}, {settled} settled rows of {n}")
+            errors["svm_head"] = max(errors["svm_head"], worst)
+            log(f"  svm_head vs plain, {name} ({len(head.classes)} classes, {int(head.support_vectors.shape[0])} "
+                f"support vectors), {form or picked} form{' (forced)' if form else ''}: {rows} rows in float32 and "
+                f"float64, decisions within {worst:.3e}, indices equal")
     del heads
 
 
@@ -4262,8 +4291,8 @@ def main() -> int:
         f"xxh3_records_count at one 4 Mbp assembly, bloom_count at its longest contig, probe_select at one "
         f"chunk of 8,192 reads, row_gather at {CALIBRATION_N} indices of 512 B rows on a {CALIBRATION_TABLE_MB} MB "
         f"table, body_variants (current; every variant under variants) at microbench_body's 65,536 reads on a "
-        f"{BODY_TABLE_MB[0]:g} MB table, svm_head at the main path's head on one row of 40 scores (its "
-        f"launches: one a prediction on the card); "
+        f"{BODY_TABLE_MB[0]:g} MB table, svm_head at the main path's head on one row of 40 scores in the form "
+        f"its plan picks (forms: each form forced; its launches: one a prediction on the card); "
         f"whole run {time.time() - t_start:.1f} s"
     )
     print(json.dumps({"kernels": kernels}))

@@ -939,8 +939,10 @@ def _random_head(rng, kernel, n_classes, per_class, n_features, device, n_sv=Non
     return head.to(device)
 
 
-def _check_svm_head(head, x, min_settled):
-    """K11 against its plain version on rows ``x``: decisions within
+def _check_svm_head(head, x, min_settled, form):
+    """K11 against its plain version on rows ``x``, in the form its plan
+    picks (``form``) and in each form it can take (the global form
+    always, the staged form where the packed head fits): decisions within
     1e-12, indices equal on rows with every decision 1e-9 from zero (at
     least ``min_settled`` of them), one launch a call."""
     from xspect2_tpu_torch.ops import svm_head as sh
@@ -950,15 +952,25 @@ def _check_svm_head(head, x, min_settled):
     pred = head.predict_indices(x)
     dec = head.decision_values(x)
     assert sh.svm_head.launches == before + 2
+    assert head.k11_plan.form == form
     both = sh.svm_head(head, x, decisions=True)
     assert sh.svm_head.launches == before + 3
     assert pred.dtype == torch.int64 and pred.shape == (x.shape[0],)
     assert dec.dtype == torch.float64 and dec.shape == want_dec.shape
-    assert float((dec - want_dec).abs().max()) < 1e-12
     assert torch.equal(both[0], pred) and torch.equal(both[1], dec)
     settled = (want_dec.abs() > 1e-9).all(dim=1)
     assert int(settled.sum()) >= min_settled
-    assert torch.equal(pred[settled], want_pred[settled])
+    forms = ("staged", "global") if form == "staged" else ("global",)
+    for each in forms:
+        got_pred, got_dec = sh.svm_head(head, x, decisions=True, form=each)
+        assert float((got_dec - want_dec).abs().max()) < 1e-12, each
+        assert torch.equal(got_pred[settled], want_pred[settled]), each
+        if each == form:
+            assert torch.equal(got_pred, pred) and torch.equal(got_dec, dec)
+    assert sh.svm_head.launches == before + 3 + len(forms)
+    if form == "global":
+        with pytest.raises(ValueError, match="no staged form"):
+            sh.svm_head(head, x, form="staged")
 
 
 @pytest.mark.cuda
@@ -973,18 +985,18 @@ def test_svm_head_kernel_matches_plain(cuda_device, kernel, n, dtype):
     head = _random_head(rng, kernel, 40, 2, 40, cuda_device)
     wide = torch.from_numpy(rng.random((n, 48))).to(cuda_device, dtype)
     for x in (wide[:, :40].contiguous(), wide[:, :40]):
-        _check_svm_head(head, x, n - n // 100)
+        _check_svm_head(head, x, n - n // 100, "staged")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", SVM_KERNELS)
 def test_svm_head_kernel_at_512_classes(cuda_device, kernel):
-    """130,816 pairs a row: the threads' pair walk covers more than 500
-    pairs each."""
+    """130,816 pairs a row, more than 500 a thread: the packed head (~7
+    MB) does not fit shared memory, so the plan picks the global form."""
     rng = np.random.default_rng(512 + SVM_KERNELS.index(kernel))
     head = _random_head(rng, kernel, 512, 1, 512, cuda_device)
     x = torch.from_numpy(rng.random((7, 512))).to(cuda_device, torch.float32)
-    _check_svm_head(head, x, 6)
+    _check_svm_head(head, x, 6, "global")
 
 
 @pytest.mark.cuda
@@ -999,9 +1011,36 @@ def test_svm_head_kernel_at_the_shared_memory_limit(cuda_device):
     most = (optin - 8 * 40 - 4 * 2) // 8
     assert most > 48 * 1024 // 8
     x = torch.from_numpy(rng.random((7, 40))).to(cuda_device)
-    _check_svm_head(_random_head(rng, "rbf", 2, 0, 40, cuda_device, n_sv=most), x, 6)
+    _check_svm_head(_random_head(rng, "rbf", 2, 0, 40, cuda_device, n_sv=most), x, 6, "global")
     head = _random_head(rng, "rbf", 2, 0, 40, cuda_device, n_sv=most + 1)
     before = sh.svm_head.launches
     with pytest.raises(ValueError, match=f"limit of {optin} B"):
         head.predict_indices(x)
     assert sh.svm_head.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", SVM_KERNELS)
+def test_svm_head_plan_follows_the_head_when_it_moves(cuda_device, kernel):
+    """The plan is made at the first call on the card, kept for later
+    calls, dropped when the head moves to the CPU and made anew (new
+    buffers, the same answers) when it comes back."""
+    from xspect2_tpu_torch.ops import svm_head as sh
+
+    rng = np.random.default_rng(40 + SVM_KERNELS.index(kernel))
+    head = _random_head(rng, kernel, 40, 2, 40, cuda_device)
+    x = torch.from_numpy(rng.random((33, 40))).to(cuda_device)
+    assert head.k11_plan is None
+    first = sh.svm_head(head, x, decisions=True)
+    plan = head.k11_plan
+    assert plan is not None and plan.device == x.device and plan.form == "staged"
+    sh.svm_head(head, x)
+    assert head.k11_plan is plan
+    head.cpu()
+    assert head.k11_plan is None
+    want = sh.svm_head(head, x.cpu(), decisions=True)
+    head.to(cuda_device)
+    again = sh.svm_head(head, x, decisions=True)
+    assert head.k11_plan is not plan and head.k11_plan.buffer.data_ptr() != 0
+    assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+    assert float((again[1].cpu() - want[1]).abs().max()) < 1e-12

@@ -15,13 +15,19 @@ the rows lie on the CPU) gives
 - the same bits as the formula that recomputed the support vectors'
   squared norms on every call, now read from ``sv_sq``.
 
-A numpy emulation of ``csrc/svm_head.cu`` (its block of threads walking
-the pairs, each pair summed segment i, segment j, intercept, the votes
-and warp 0's first maximum) is within 1e-12 of the plain version and
-covers every pair once; the wrapper's shared-memory check raises
-``ValueError`` past the card's limit, as a pure function.
+A numpy emulation of ``csrc/svm_head.cu`` on the head packed as its
+launch plan packs it (phase 1's groups of lanes over features and xor
+butterfly, each pair read from the pair table and summed segment i,
+segment j, intercept from its run of coefficients, the votes and warp
+0's first maximum) is within 1e-12 of the plain version; the pair table
+holds every pair once, in libsvm's order, at 2-512 classes; the packed
+head's arrays lie at 16 B multiples, and the form follows the bytes at
+the edge of the opt-in size; the wrapper's shared-memory check raises
+``ValueError`` past the card's limit, as a pure function; the plan
+mirrors the kernel's struct and is dropped when the head moves.
 """
 
+import ctypes
 import functools
 import re
 from pathlib import Path
@@ -176,15 +182,6 @@ def test_sv_sq_keeps_the_plain_versions_bits(n_classes, kernel):
     assert torch.equal(head.predict_indices(torch.from_numpy(rows)), torch.argmax(votes, dim=1))
 
 
-def _advance(i, j, step, n_classes):
-    """``csrc/svm_head.cu:advance``."""
-    j += step
-    while j >= n_classes and i < n_classes:
-        i += 1
-        j += i + 1 - n_classes
-    return i, j
-
-
 def _powi(base, times):
     tmp, ret = base, np.ones_like(base)
     while times > 0:
@@ -195,23 +192,66 @@ def _powi(base, times):
     return ret
 
 
+def _unpack(head):
+    """The packed head (``ops.pack_head``) read back at its offsets:
+    (sv, sv_sq or None, pair-major coefficients, intercepts, pair table)."""
+    blob, layout, total = ops.pack_head(head)
+    assert blob.dtype == np.uint8 and blob.size == total
+    n_sv, n_features = head.support_vectors.shape
+    n_pairs = len(head.pairs)
+
+    def at(name, dtype, count):
+        off, size = layout[name]
+        assert count * np.dtype(dtype).itemsize <= size
+        return blob[off:off + count * np.dtype(dtype).itemsize].view(dtype)
+
+    sv_sq = at("sv_sq", np.float64, n_sv) if head.kernel == "rbf" else None
+    stride = ops.sv_stride(n_features)
+    assert stride % 2 == 1 and stride - n_features in (0, 1)
+    rows = at("sv", np.float64, n_sv * stride).reshape(n_sv, stride)
+    assert not rows[:, n_features:].any()
+    return (rows[:, :n_features], sv_sq,
+            at("coef", np.float64, (len(head.classes) - 1) * n_sv), at("icpt", np.float64, n_pairs),
+            at("pairs", np.uint32, 4 * n_pairs).reshape(n_pairs, 4))
+
+
+def _lane_sums(terms, lanes):
+    """K11's phase-1 order over the last axis: lane l of a group of
+    ``lanes`` sums terms l, l + lanes, ... in order, then the xor
+    butterfly of lanes / 2, ..., 2, 1 lanes."""
+    part = np.zeros(terms.shape[:-1] + (lanes,))
+    for f in range(terms.shape[-1]):
+        part[..., f % lanes] = part[..., f % lanes] + terms[..., f]
+    d = lanes // 2
+    while d >= 1:
+        part = part + part[..., np.arange(lanes) ^ d]
+        d //= 2
+    assert (part == part[..., :1]).all()  # every lane holds the sum
+    return part[..., 0]
+
+
+def _sv_lanes(n_sv, threads):
+    """Lanes a support vector: the largest power of two up to 32 with
+    n_sv * lanes <= threads / 2."""
+    q = 32
+    while q > 1 and n_sv * q > threads // 2:
+        q //= 2
+    return q
+
+
 def _emulate_k11(head, x):
-    """K11's arithmetic and order in numpy, for all rows at once:
-    ``(indices, decisions, the pair (i, j) each thread's walk gave each
-    column)``."""
+    """K11's arithmetic and order in numpy, for all rows at once, on the
+    head packed as its launch plan packs it: ``(indices, decisions,
+    the pair (i, j) the table gave each column)``."""
     threads = _threads()
     x = x.astype(np.float64)
-    sv, sv_sq = head.support_vectors.numpy(), head.sv_sq.numpy()
-    dual, intercept, starts = head.dual_coef.numpy(), head.intercept.numpy(), head.starts.numpy()
+    sv, sv_sq, coef, intercept, table = _unpack(head)
     n, n_classes = len(x), len(head.classes)
-    dot = np.zeros((n, len(sv)))
-    xx = np.zeros(n)
-    for f in range(x.shape[1]):  # feature order
-        dot = dot + x[:, f : f + 1] * sv[None, :, f]
-        xx = xx + x[:, f] * x[:, f]
+    dot = _lane_sums(x[:, None, :] * sv[None, :, :], _sv_lanes(len(sv), threads))
     if head.kernel == "linear":
         km = dot
     elif head.kernel == "rbf":
+        xx = _lane_sums(x * x, 32)
         km = np.exp(-head.gamma * (xx[:, None] + sv_sq[None, :] - 2.0 * dot))
     elif head.kernel == "poly":
         km = _powi(head.gamma * dot + head.coef0, head.degree)
@@ -222,17 +262,18 @@ def _emulate_k11(head, x):
     votes = np.zeros((n, n_classes), dtype=np.int64)
     walked = [None] * n_pairs
     for t in range(threads):
-        i, j = _advance(0, 1, t, n_classes)
         for p in range(t, n_pairs, threads):
+            first, seg_i, seg_j, ij = (int(v) for v in table[p])
+            i, j = ij & 0xFFFF, ij >> 16
             walked[p] = (i, j)
             s = np.zeros(n)
-            for k in range(starts[i], starts[i + 1]):
-                s = s + dual[j - 1, k] * km[:, k]
-            for k in range(starts[j], starts[j + 1]):
-                s = s + dual[i, k] * km[:, k]
+            c = first
+            for start, count in ((seg_i & 0xFFFF, seg_i >> 16), (seg_j & 0xFFFF, seg_j >> 16)):
+                for k in range(count):
+                    s = s + coef[c] * km[:, start + k]
+                    c += 1
             dec[:, p] = s + intercept[p]
             votes[np.arange(n), np.where(dec[:, p] > 0, i, j)] += 1
-            i, j = _advance(i, j, threads, n_classes)
     # warp 0: each lane the first maximum of its classes, then the butterfly
     lanes = [(votes[:, c::32].max(axis=1, initial=-1), c + 32 * np.argmax(votes[:, c::32], axis=1))
              if c < n_classes else (np.full(n, -1), np.full(n, n_classes)) for c in range(32)]
@@ -264,22 +305,80 @@ def test_kernels_order_is_within_rounding_of_the_plain_version(n_classes, kernel
 
 @pytest.mark.parametrize("n_classes", [2, 3, 6, 40, 255, 256, 257, 512])
 def test_the_pair_walk_covers_every_pair_once(n_classes):
-    """The threads' walks at the 512-class tables too (130,816 pairs), and
-    at class counts around the block's width."""
-    threads = _threads()
+    """The pair table at the 512-class tables too (130,816 pairs), and at
+    class counts around the block's width, with 1-3 support vectors a
+    class: every pair once, in libsvm's order, each with its classes'
+    segments and the run of coefficients it sums, the runs back to back."""
+    rng = np.random.default_rng(n_classes)
+    n_support = rng.integers(1, 4, n_classes)
+    starts = np.concatenate([[0], np.cumsum(n_support)])
+    n_sv = int(starts[-1])
+    table = ops.pair_table(n_support)
+    pairs = [(i, j) for i in range(n_classes) for j in range(i + 1, n_classes)]
+    assert table.dtype == np.uint32 and table.shape == (len(pairs), 4)
+    i, j = (table[:, 3] & 0xFFFF).astype(np.int64), (table[:, 3] >> 16).astype(np.int64)
+    assert list(zip(i.tolist(), j.tolist())) == pairs
+    np.testing.assert_array_equal(table[:, 1] & 0xFFFF, starts[i])
+    np.testing.assert_array_equal(table[:, 1] >> 16, n_support[i])
+    np.testing.assert_array_equal(table[:, 2] & 0xFFFF, starts[j])
+    np.testing.assert_array_equal(table[:, 2] >> 16, n_support[j])
+    width = n_support[i] + n_support[j]
+    np.testing.assert_array_equal(table[:, 0], np.cumsum(width) - width)
+    dual = rng.uniform(-1, 1, (n_classes - 1, n_sv))
+    coef = ops.pair_coefficients(dual, n_support)
+    assert coef.shape == ((n_classes - 1) * n_sv,) == (int(width.sum()),)
+    for p in sorted({0, len(pairs) - 1, *rng.integers(0, len(pairs), 300).tolist()}):
+        a, b = pairs[p]
+        run = coef[table[p, 0]:table[p, 0] + width[p]]
+        want = np.concatenate([dual[b - 1, starts[a]:starts[a + 1]], dual[a, starts[b]:starts[b + 1]]])
+        np.testing.assert_array_equal(run, want)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("n_classes", CLASSES + [512])
+def test_the_packed_head_is_16_byte_aligned_and_the_form_follows_the_bytes(n_classes, kernel):
+    """Every array of the packed head starts at a multiple of 16 B and
+    takes one, back to back with zeros in the padding; the staged form is
+    picked up to the byte where the packed head, its mbarrier and the
+    kernel row fit the opt-in size, the global form below that, and
+    ``ValueError`` below the kernel row."""
+    n_sv = 2 * n_classes + 1  # odd: the support vectors' arrays need padding
+    n_features = FEATURES + 1
+    layout, total = ops.head_layout(n_sv, n_features, n_classes, kernel)
+    assert list(layout) == list(ops.ARRAYS)
+    at = 0
+    for name in ops.ARRAYS:
+        offset, size = layout[name]
+        assert offset == at and offset % 16 == 0 and size % 16 == 0
+        at += size
+    assert total == at
     n_pairs = n_classes * (n_classes - 1) // 2
-    seen = np.zeros((n_classes, n_classes), dtype=np.int64)
-    for t in range(threads):
-        i, j = _advance(0, 1, t, n_classes)
-        p = t
-        while p < n_pairs:
-            assert 0 <= i < j < n_classes
-            assert p == i * (2 * n_classes - i - 1) // 2 + (j - i - 1)
-            seen[i, j] += 1
-            i, j = _advance(i, j, threads, n_classes)
-            p += threads
-        assert i == n_classes or p >= n_pairs  # a walk past the end stops
-    assert seen.sum() == n_pairs and seen.max() == 1
+    assert ops.sv_stride(n_features) == n_features  # odd already
+    assert layout["sv"][1] - 8 * n_sv * n_features in (0, 8)
+    assert layout["sv_sq"][1] == (-(-8 * n_sv // 16) * 16 if kernel == "rbf" else 0)
+    assert layout["pairs"][1] == 16 * n_pairs
+    row = ops.shared_bytes(n_sv, n_features, n_classes)
+    edge = ops.BAR_BYTES + total + row
+    assert ops.pick_form(total, n_sv, n_features, n_classes, edge) == ("staged", edge, row)
+    assert ops.pick_form(total, n_sv, n_features, n_classes, edge - 1) == ("global", 0, row)
+    assert ops.pick_form(total, n_sv, n_features, n_classes, row) == ("global", 0, row)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.pick_form(total, n_sv, n_features, n_classes, row - 1)
+    # on an H100: the smoke's 40-class heads stage, its 512-class head reads device memory
+    form = ops.pick_form(total, n_sv, n_features, n_classes, H100_OPTIN)[0]
+    assert form == ("global" if n_classes == 512 else "staged")
+    svc, _ = _fitted(n_classes, kernel) if n_classes in CLASSES else (None, None)
+    if svc is not None:
+        head = SVMHead.from_sklearn(svc)
+        blob, packed, size = ops.pack_head(head)
+        assert (packed, size) == ops.head_layout(*head.support_vectors.shape, n_classes, kernel)
+        used = np.zeros(size, dtype=bool)
+        stride = ops.sv_stride(head.support_vectors.shape[1])
+        for name, count in (("sv", head.support_vectors.shape[0] * stride * 8), ("coef", head.dual_coef.numel() * 8),
+                            ("icpt", n_pairs * 8), ("pairs", n_pairs * 16),
+                            ("sv_sq", head.sv_sq.numel() * 8 if kernel == "rbf" else 0)):
+            used[packed[name][0]:packed[name][0] + count] = True
+        assert not blob[~used].any()
 
 
 @pytest.mark.parametrize("n_classes", CLASSES + [512])
@@ -306,3 +405,43 @@ def test_the_wrapper_runs_the_plain_version_on_the_cpu_and_checks_its_rows():
         ops.svm_head(head, x.int())
     with pytest.raises(ValueError, match="features"):
         ops.svm_head(head, x[:, :-1])
+
+
+def test_the_launch_plan_mirrors_the_kernels_struct_and_is_dropped_when_the_head_moves():
+    """``_Plan`` has ``csrc/svm_head.cu:Plan``'s fields in order and its
+    size; a plan (made here on the CPU, as it is made on the card, and
+    never launched) holds the packed head and the head's parameters;
+    ``.to()``, a dtype cast and ``load_state_dict`` drop it."""
+    src = SOURCE.read_text(encoding="utf-8")
+    body = re.search(r"struct Plan \{(.*?)\};", src, re.S).group(1)
+    fields = [name for decl in re.sub(r"//[^\n]*", "", body).split(";")
+              for name in re.findall(r"(\w+)\s*(?=,|$)", decl.strip())]
+    assert [name for name, _ in ops._Plan._fields_] == fields
+    assert ctypes.sizeof(ops._Plan) == int(re.search(r"sizeof\(Plan\) == (\d+)", src).group(1))
+
+    svc, rows = _fitted(6, "rbf")
+    head = SVMHead.from_sklearn(svc)
+    plan = ops.LaunchPlan(head, torch.device("cpu"), H100_OPTIN)
+    blob, layout, total = ops.pack_head(head)
+    assert plan.form == "staged" and torch.equal(plan.buffer, torch.from_numpy(blob))
+    s = plan.struct
+    assert s.head == plan.buffer.data_ptr() and ctypes.addressof(s) == plan.ref
+    assert [getattr(s, name) for name in ops.ARRAYS] == [layout[name][0] for name in ops.ARRAYS]
+    assert (s.head_bytes, s.n_features, s.n_sv, s.n_classes, s.n_pairs) == (
+        total, FEATURES, head.support_vectors.shape[0], 6, 15)
+    assert (s.kernel, s.degree, s.gamma, s.coef0) == (ops.KERNEL_CODES["rbf"], head.degree, head.gamma, head.coef0)
+    assert s.global_smem == ops.shared_bytes(head.support_vectors.shape[0], FEATURES, 6)
+    assert s.staged_smem == ops.BAR_BYTES + total + s.global_smem
+    for move in (lambda h: h.to("cpu"), lambda h: h.to(torch.float64), lambda h: h.double(),
+                 lambda h: h.load_state_dict(h.state_dict())):
+        head.k11_plan = plan
+        move(head)
+        assert head.k11_plan is None
+    assert SVMHead.k11_plan is None
+    other = SVMHead.from_sklearn(svc)
+    other.k11_plan = plan
+    with pytest.raises(ValueError, match="contiguous and on the rows' device"):
+        ops.LaunchPlan(head, torch.device("meta"), H100_OPTIN)
+    assert head.k11_plan is None and other.k11_plan is plan
+    np.testing.assert_array_equal(head.predict_indices(torch.from_numpy(rows)).numpy(),
+                                  other.predict_indices(torch.from_numpy(rows)).numpy())

@@ -8,9 +8,10 @@ the device and reproduces libsvm's one-vs-one voting in float64.  On a
 CUDA tensor a prediction is one launch of kernel K11
 (:func:`xspect2_tpu_torch.ops.svm_head.svm_head`, ``csrc/svm_head.cu``):
 kernel row, every pair's decision, votes and the first class with the
-most votes.  On the CPU the head runs K11's plain version, a few dense
-products over a coefficient matrix per side of the pair, the same few
-ops however many pairs there are.
+most votes, through the head's launch plan, made at its first call on
+the card and dropped when its buffers move.  On the CPU the head runs
+K11's plain version, a few dense products over a coefficient matrix per
+side of the pair, the same few ops however many pairs there are.
 """
 
 import math
@@ -284,10 +285,15 @@ class SVMHead(nn.Module):
     ``SVMHead.calls`` counts the predictions made, over all heads.
 
     The pair (i, j) at column p sums class i's support vectors against
-    ``dual_coef[j - 1]`` and class j's against ``dual_coef[i]``.  K11
-    reads them there, with each class's first support vector from the
-    int32 buffer ``starts`` and the support vectors' squared norms from
-    ``sv_sq``, both made once here.  The plain version reads the float64
+    ``dual_coef[j - 1]`` and class j's against ``dual_coef[i]``.  Each
+    class's first support vector (the int32 buffer ``starts``) and the
+    support vectors' squared norms (``sv_sq``) are made once here.  K11
+    reads the head from its launch plan (``k11_plan``,
+    :class:`~xspect2_tpu_torch.ops.svm_head.LaunchPlan`): these arrays,
+    the coefficients pair by pair and a pair table, packed once on the
+    card at the first call there; :meth:`_apply` (``.to()``, ``.cuda()``)
+    and :meth:`_load_from_state_dict` drop it, so that no launch reads
+    stale buffers.  The plain version reads the float64
     buffer ``coef`` ([n_sv, n_pairs]), which holds those coefficients in
     column p, in the rows of class i's and class j's segment, and zeros
     elsewhere, so that the decisions of every pair are
@@ -296,6 +302,7 @@ class SVMHead(nn.Module):
     """
 
     calls = 0
+    k11_plan = None
 
     def __init__(
         self,
@@ -341,6 +348,14 @@ class SVMHead(nn.Module):
         second = np.array([j for _, j in pairs], dtype=np.int64)
         coef = np.where(owner == first, dual[second - 1].T, np.where(owner == second, dual[first].T, 0.0))
         self.register_buffer("coef", torch.as_tensor(coef, dtype=f64))
+
+    def _apply(self, fn, *args, **kwargs):
+        self.k11_plan = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self.k11_plan = None
+        return super()._load_from_state_dict(*args, **kwargs)
 
     @classmethod
     def from_sklearn(cls, svc) -> "SVMHead":

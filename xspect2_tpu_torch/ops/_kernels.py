@@ -29,7 +29,6 @@ NVCC_FLAGS = [
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 _i64 = ctypes.c_int64
-_f64 = ctypes.c_double
 
 # C entry point and argtypes of each kernel library: every pointer and
 # the stream as c_void_p, so ctypes never truncates them to 32 bits
@@ -69,17 +68,15 @@ SIGNATURES = {
         "xs_body_variants",
         [_vp, _vp, _vp, _i64, _i32, _i32, _i64, _i32, _i32, _i32, _i32, _i64, _i32, _vp],
     ),
-    "svm_head": (
-        "xs_svm_head",
-        [_vp, _i64, _i32, _vp, _vp, _vp, _vp, _vp, _i64, _i32, _i32, _i32, _i32, _f64, _i32, _f64,
-         _i32, _vp, _vp, _vp],
-    ),
+    # the launch plan (a host struct, csrc/svm_head.cu:Plan) by pointer
+    "svm_head": ("xs_svm_head", [_vp, _i32, _vp, _i64, _i32, _i64, _vp, _vp, _vp]),
 }
 # further C entry points of a kernel library: name -> (library, symbol, argtypes)
 EXTRA_ENTRIES = {
     # the launch xs_body_variants makes at a read length (7 ints out)
     "body_variants_config": ("body_variants", "xs_body_variants_config", [_i32, _i32, _i32, _vp]),
-    # the current device's opt-in shared memory a block (one int out)
+    # the current device's opt-in shared memory a block (one int out); allows
+    # K11's kernels that much there
     "svm_head_optin": ("svm_head", "xs_svm_head_optin", [_vp]),
     # an empty kernel on K11's block of one row, the launch floor
     "svm_head_empty": ("svm_head", "xs_svm_head_empty", [_vp]),
