@@ -8,7 +8,8 @@ it.  ``XSPECT_MODEL_CACHE``, read at every call as the JAX package reads
 it, bounds the models kept loaded (default :data:`CAPACITY`, and a value
 that is not a number means the default); 0 or less loads without
 caching.  The oldest untouched entry goes first, and its device table is
-freed with the model.
+freed with the model.  Each load from disk is the phase ``model.load`` of
+:mod:`xspect2_tpu_torch.profiling`: its calls count the cache's misses.
 """
 
 import os
@@ -17,6 +18,8 @@ from collections import OrderedDict
 from pathlib import Path
 
 import torch
+
+from xspect2_tpu_torch import profiling
 
 CAPACITY = 3
 
@@ -36,7 +39,8 @@ def load_cached(model_class, path: Path, device: torch.device):
     path = Path(path)
     cap = _capacity()
     if cap <= 0:
-        return model_class.load(path, device=device)
+        with profiling.phase("model.load"):
+            return model_class.load(path, device=device)
     key = (model_class.__name__, str(path), str(device))
     stamp = path.stat().st_mtime_ns
     with _LOCK:
@@ -44,7 +48,8 @@ def load_cached(model_class, path: Path, device: torch.device):
         if entry is not None and entry[0] == stamp:
             _CACHE.move_to_end(key)
             return entry[1]
-    model = model_class.load(path, device=device)
+    with profiling.phase("model.load"):
+        model = model_class.load(path, device=device)
     with _LOCK:
         _CACHE[key] = (stamp, model)
         _CACHE.move_to_end(key)

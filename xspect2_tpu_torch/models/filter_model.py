@@ -20,7 +20,7 @@ from typing import Any, Iterable, Iterator
 
 import numpy as np
 
-from xspect2_tpu_torch import native, resolve_device
+from xspect2_tpu_torch import native, profiling, resolve_device
 from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings, slugify
@@ -207,6 +207,7 @@ class ProbabilisticFilterModel:
         counts = self.engine.count_hits_records([("seq", dna.encode(seq))], step=step)[0]
         return self._hits_dict_from_counts(counts, exclude_ids)
 
+    @profiling.phase("engine.reads")
     def _count_reads(self, mat: np.ndarray, step: int) -> np.ndarray:
         """Hit counts of an [n, L] read matrix, streamed in bounded slices."""
         n, length = mat.shape
@@ -223,8 +224,10 @@ class ProbabilisticFilterModel:
             pending.append((out, m))
             while len(pending) >= _IN_FLIGHT:
                 out, m = pending.pop(0)
-                parts.append(out[:m].cpu().numpy())
-        parts.extend(out[:m].cpu().numpy() for out, m in pending)
+                with profiling.phase("engine.reads.fetch"):
+                    parts.append(out[:m].cpu().numpy())
+        with profiling.phase("engine.reads.fetch"):
+            parts.extend(out[:m].cpu().numpy() for out, m in pending)
         return np.concatenate(parts).astype(np.int64)
 
     def _predict_reads_file(
@@ -249,7 +252,8 @@ class ProbabilisticFilterModel:
 
         counts = self._count_reads(codes.reshape(n, length), step)
         nk = math.ceil((length - self.k + 1) / step)
-        hits = {rid: self._record_hits(counts[i], exclude_ids, display_name) for i, rid in enumerate(ids)}
+        with profiling.phase("model.hits"):
+            hits = {rid: self._record_hits(counts[i], exclude_ids, display_name) for i, rid in enumerate(ids)}
         num_kmers = {rid: nk for rid in ids}
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
 
@@ -290,17 +294,21 @@ class ProbabilisticFilterModel:
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
         kept_records: list[SeqRecord] = []
-        for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
-            batch = prepare_batch(
-                [(rec.id, dna.encode(rec.seq)) for rec in rec_batch],
-                self.k,
-                step=step,
-                chunk=self.engine.chunk,
-            )
+        batches = self._iter_record_batches(self._as_record_iterable(sequence_input))
+        while True:
+            with profiling.phase("wire.read"):
+                rec_batch = next(batches, None)
+            if rec_batch is None:
+                break
+            with profiling.phase("wire.encode"):
+                encoded = [(rec.id, dna.encode(rec.seq)) for rec in rec_batch]
+            with profiling.phase("wire.prepare"):
+                batch = prepare_batch(encoded, self.k, step=step, chunk=self.engine.chunk)
             counts = self.engine.count_hits(batch)
-            for i, rec in enumerate(rec_batch):
-                hits[rec.id] = self._record_hits(counts[i], exclude_ids, display_name)
-                num_kmers[rec.id] = batch.num_kmers[i]
+            with profiling.phase("model.hits"):
+                for i, rec in enumerate(rec_batch):
+                    hits[rec.id] = self._record_hits(counts[i], exclude_ids, display_name)
+                    num_kmers[rec.id] = batch.num_kmers[i]
             if validation:
                 kept_records.extend(rec_batch)
         if not hits:

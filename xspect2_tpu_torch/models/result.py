@@ -14,6 +14,8 @@ import json
 from collections import Counter
 from pathlib import Path
 
+from xspect2_tpu_torch import profiling
+
 #: sentinel filter threshold selecting per-record argmax instead of a cutoff
 ARGMAX = -1
 
@@ -119,10 +121,20 @@ class ModelResult:
             payload["prediction"] = self.prediction
         return payload
 
+    @profiling.phase("result.save")
     def save(self, path: Path) -> None:
+        """Write the result JSON: the phases ``result.write`` (the
+        directory), ``result.scores``, ``result.encode`` and
+        ``result.write`` (the file) under ``result.save``."""
         path = Path(path)
-        path.parent.mkdir(exist_ok=True, parents=True)
-        path.write_text(json.dumps(self.to_dict(), indent=4), encoding="utf-8")
+        with profiling.phase("result.write"):
+            path.parent.mkdir(exist_ok=True, parents=True)
+        with profiling.phase("result.scores"):
+            payload = self.to_dict()
+        with profiling.phase("result.encode"):
+            text = json.dumps(payload, indent=4)
+        with profiling.phase("result.write"):
+            path.write_text(text, encoding="utf-8")
 
 
 class MlstResult:

@@ -15,6 +15,7 @@ label rows.
 import csv
 from pathlib import Path
 
+from xspect2_tpu_torch import profiling
 from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
 from xspect2_tpu_torch.models.result import ModelResult
@@ -129,15 +130,19 @@ class ProbabilisticFilterSVMModel(ProbabilisticFilterModel):
         validation: bool = False,
     ) -> ModelResult:
         res = super().predict(sequence_input, exclude_ids, step, display_name, validation)
-        svm_scores = dict(sorted(res.get_scores()["total"].items()))
+        with profiling.phase("svm.scores"):
+            svm_scores = dict(sorted(res.get_scores()["total"].items()))
         x = [list(svm_scores.values())]
         res.hits["misclassified"] = res.misclassified
+        slug = self.slug()
+        with profiling.phase("svm.head"):
+            prediction = str(self._get_svm(exclude_ids).predict(x)[0])
         return ModelResult(
-            self.slug(),
+            slug,
             res.hits,
             res.num_kmers,
             sparse_sampling_step=step,
-            prediction=str(self._get_svm(exclude_ids).predict(x)[0]),
+            prediction=prediction,
         )
 
     def _read_training_scores(self, exclude_ids):

@@ -19,6 +19,8 @@ from pathlib import Path
 
 import numpy as np
 
+from xspect2_tpu_torch import profiling
+
 _NATIVE_DIR = Path(__file__).resolve().parent.parent / "native"
 _LIB_PATH = _NATIVE_DIR / "build" / "libxspect.so"
 
@@ -146,11 +148,14 @@ def _parse_file_numpy(path: Path):
     return codes, offsets, ids
 
 
+@profiling.phase("wire.parse")
 def parse_file(path: Path):
     """Parse a FASTA/FASTQ file into ``(codes, offsets, ids)``.
 
     ``codes`` are the concatenated uint8 codes, ``offsets`` the int64
-    record offsets (len = n_records + 1), ``ids`` the record ids.
+    record offsets (len = n_records + 1), ``ids`` the record ids.  A
+    call is the phase ``wire.parse``: on the classify path, the reads
+    route's parse or the records route's check of the route.
     """
     lib = _load()
     if lib is None:

@@ -7,7 +7,8 @@ into its own shared library with a plain C interface under
 use, under a file lock, so concurrent processes build once; a library
 is named by the hash of its source and of every ``csrc/`` header it
 includes, so an edited source or header builds anew.  Nothing here
-runs at import time.
+runs at import time.  A round of ``nvcc`` runs is the phase
+``kernels.build`` of :mod:`xspect2_tpu_torch.profiling`.
 """
 
 import ctypes
@@ -17,7 +18,10 @@ import re
 import shutil
 import subprocess
 import time
+from contextlib import nullcontext
 from pathlib import Path
+
+from xspect2_tpu_torch import profiling
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -137,13 +141,14 @@ def build(names=None) -> dict[str, str]:
                 out,
             )
         failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            logs[name] = log
-            if proc.returncode == 0:
-                tmp.replace(out)
-            else:
-                failed.append(f"{name}:\n{log}")
+        with profiling.phase("kernels.build") if procs else nullcontext():
+            for name, (proc, tmp, out) in procs.items():
+                log, _ = proc.communicate()
+                logs[name] = log
+                if proc.returncode == 0:
+                    tmp.replace(out)
+                else:
+                    failed.append(f"{name}:\n{log}")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return logs

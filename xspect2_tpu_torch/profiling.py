@@ -1,9 +1,34 @@
 """Profiling: per-phase wall timers and a device trace.
 
-Named phases (the engine records ``query.pack``, ``query.dispatch`` and
-``query.sync``, as the JAX package's engine does) accumulate wall time
-and call counts; :func:`trace` records a ``torch.profiler`` trace of
-the host and, when the process has a CUDA card, of its kernels.
+Named phases accumulate wall time and call counts; :func:`trace` records
+a ``torch.profiler`` trace of the host and, when the process has a CUDA
+card, of its kernels.  While a ``torch.profiler`` profile records (this
+module's :func:`trace` or any other), each phase is also a
+``record_function`` of its name: a ``user_annotation`` event on the
+timeline of the kernels and copies.
+
+The classify path's phases are named ``<layer>.<step>`` and nest
+strictly on one thread, so a phase's self time is its seconds less its
+children's:
+
+- ``classify.request`` (a facade call), holding ``classify.load``
+  (``load_cached``; ``model.load`` under it on a miss),
+  ``classify.predict`` (a model's ``predict``) and ``result.save``;
+- under ``classify.predict``: ``wire.parse`` (``native.parse_file``: the
+  reads route's parse, and the records route's check of the route),
+  the records route's ``wire.read`` (a batch pulled from the record
+  reader), ``wire.encode`` and ``wire.prepare`` (a batch each), the
+  reads route's ``engine.reads`` (pack, upload, launches and fetch, with
+  ``query.pack`` and ``engine.reads.fetch`` under it), ``model.hits``
+  (the ranked hit dictionaries, once a batch or file), and the SVM
+  model's ``svm.scores`` and ``svm.head``;
+- under ``result.save``: ``result.scores``, ``result.encode`` (the JSON
+  encoder) and ``result.write`` (the directory, then the file);
+- the engine's ``query.pack``, ``query.dispatch`` and ``query.sync``
+  (as the JAX package's engine records them);
+- ``model.load`` (a model read from disk: a cache miss, or no cache) and
+  ``kernels.build`` (a round of kernel libraries compiled), which a warm
+  process no longer records.
 
 Usage::
 
@@ -24,19 +49,28 @@ import json
 import time
 from collections import defaultdict
 
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
 _totals: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
 
 
+_NO_REGION = contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def phase(name: str):
-    """Accumulate wall time under a named phase."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        _totals[name] += time.perf_counter() - t0
-        _counts[name] += 1
+    """Accumulate wall time under a named phase.  While a profile
+    records, the phase is also a ``record_function`` of its name, whose
+    own cost stays out of the phase's seconds."""
+    with record_function(name) if _profiler_enabled() else _NO_REGION:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _totals[name] += time.perf_counter() - t0
+            _counts[name] += 1
 
 
 def add(name: str, seconds: float) -> None:
