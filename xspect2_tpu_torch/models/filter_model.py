@@ -11,6 +11,18 @@ the uniform-reads route; every other input (assemblies, small files,
 record lists) through the records route.  ``validation=True`` always
 takes the records route and keeps every record it counted for the
 alignment post-filter (:meth:`detecting_misclassification`).
+
+A file is parsed natively once (phase ``wire.parse``).  The records
+route of a FASTA file cuts its batches from that parse, as flat arrays,
+unless a scan of the file's bytes finds something on which the parse
+could differ from the line reader (``io/fasta.py``), which defines the
+records; every other input goes through the line reader and encodes
+each record on its own.  Both make the same batches.  In the phases,
+``wire.read`` is a batch pulled from the reader or the parse (and the
+scan before the parse's first), ``wire.encode`` a batch's codes and
+``wire.prepare`` the rest of its :class:`PreparedBatch`; the counters
+``wire.records_from_parse`` and ``wire.records_from_reader`` count the
+files each served.
 """
 
 import json
@@ -26,7 +38,13 @@ from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.definitions import fasta_endings, fastq_endings, slugify
 from xspect2_tpu_torch.io.fasta import SeqRecord, get_record_iterator
 from xspect2_tpu_torch.models.result import ModelResult
-from xspect2_tpu_torch.ops.query import DeviceQueryEngine, prepare_batch
+from xspect2_tpu_torch.ops.query import (
+    DeviceQueryEngine,
+    PreparedBatch,
+    batch_from_flat,
+    pad_codes,
+    prepare_batch,
+)
 
 # a file of at least this many records of one length takes the reads
 # route; anything else takes the records route (the JAX package's rule)
@@ -232,20 +250,21 @@ class ProbabilisticFilterModel:
 
     def _predict_reads_file(
         self, path: Path, exclude_ids: list[str] | None, step: int, display_name: bool
-    ) -> ModelResult | None:
+    ) -> ModelResult | tuple | None:
         """The uniform-reads route: a file of at least 512 records of one
-        length, parsed natively into one [N, L] matrix.  Returns None for
-        any other file, or when the native library is not available (as
-        the JAX package does), and the file then takes the records route."""
+        length, parsed natively into one [N, L] matrix.  Any other file
+        takes the records route: then the parse ``(codes, offsets, ids)``
+        is returned for it, or None when the native library is not
+        available (as the JAX package does)."""
         if not native.available():
             return None
-        codes, offsets, ids = native.parse_file(path)
+        codes, offsets, ids = parsed = native.parse_file(path)
         n = len(ids)
         if n < _MIN_FAST_READS:
-            return None
+            return parsed
         lengths = np.diff(offsets)
         if not (lengths == lengths[0]).all():
-            return None
+            return parsed
         length = int(lengths[0])
         if not length > self.k:
             raise ValueError("Invalid sequence, must be longer than k")
@@ -258,8 +277,10 @@ class ProbabilisticFilterModel:
         return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
 
     def _iter_record_batches(
-        self, records: Iterable[SeqRecord], max_bases: int = _MAX_RECORD_BATCH_BASES
+        self, records: Iterable[SeqRecord], max_bases: int | None = None
     ) -> Iterator[list[SeqRecord]]:
+        if max_bases is None:
+            max_bases = _MAX_RECORD_BATCH_BASES
         batch: list[SeqRecord] = []
         bases = 0
         for rec in records:
@@ -269,6 +290,61 @@ class ProbabilisticFilterModel:
                 yield batch
                 batch, bases = [], 0
         if batch:
+            yield batch
+
+    def _read_batches(
+        self, sequence_input, step: int, kept: list[SeqRecord] | None
+    ) -> Iterator[PreparedBatch]:
+        """The records route's batches through the line reader, each
+        record encoded on its own; every record read goes into ``kept``
+        when it is a list."""
+        rec_batches = self._iter_record_batches(self._as_record_iterable(sequence_input))
+        while True:
+            with profiling.phase("wire.read"):
+                rec_batch = next(rec_batches, None)
+            if rec_batch is None:
+                return
+            with profiling.phase("wire.encode"):
+                encoded = [(rec.id, dna.encode(rec.seq)) for rec in rec_batch]
+            with profiling.phase("wire.prepare"):
+                batch = prepare_batch(encoded, self.k, step=step, chunk=self.engine.chunk)
+            if kept is not None:
+                kept.extend(rec_batch)
+            yield batch
+
+    def _parsed_batches(
+        self, path: Path, parsed: tuple, step: int
+    ) -> Iterator[PreparedBatch] | None:
+        """The records route's batches cut from a FASTA file's native
+        parse, at the records where :meth:`_iter_record_batches` would
+        end them; None for any other file, or one on which the parse
+        could differ from the line reader
+        (:func:`~xspect2_tpu_torch.native.fasta_parse_matches_reader`)."""
+        codes, offsets, ids = parsed
+        if path.suffix[1:] not in fasta_endings:
+            return None
+        with profiling.phase("wire.read"):
+            if not native.fasta_parse_matches_reader(path, offsets, ids):
+                return None
+        profiling.add("wire.records_from_parse", 0.0)
+        return self._cut_batches(codes, offsets, ids, step)
+
+    def _cut_batches(self, codes, offsets, ids, step: int) -> Iterator[PreparedBatch]:
+        n = len(ids)
+        start = 0
+        while start < n:
+            with profiling.phase("wire.read"):
+                # a batch ends at the record that brings its bases to the
+                # limit, or at the limit of records
+                end = int(np.searchsorted(offsets, offsets[start] + _MAX_RECORD_BATCH_BASES))
+                end = max(start + 1, min(end, start + _MAX_RECORD_BATCH_RECORDS, n))
+                lo, hi = offsets[start], offsets[end]
+                rec_offsets = offsets[start : end + 1] - lo
+            with profiling.phase("wire.encode"):
+                padded = pad_codes(codes[lo:hi], self.k, self.engine.chunk)
+            with profiling.phase("wire.prepare"):
+                batch = batch_from_flat(padded, rec_offsets, ids[start:end], self.k, step)
+            start = end
             yield batch
 
     def predict(
@@ -286,31 +362,27 @@ class ProbabilisticFilterModel:
         ``misclassified``.  Results equal the JAX package's on the same
         model and input.
         """
+        batches = None
         if isinstance(sequence_input, Path) and not validation:
-            fast = self._predict_reads_file(sequence_input, exclude_ids, step, display_name)
-            if fast is not None:
-                return fast
+            routed = self._predict_reads_file(sequence_input, exclude_ids, step, display_name)
+            if isinstance(routed, ModelResult):
+                return routed
+            if routed is not None:
+                batches = self._parsed_batches(sequence_input, routed, step)
+        kept_records: list[SeqRecord] = []
+        if batches is None:
+            if isinstance(sequence_input, Path):
+                profiling.add("wire.records_from_reader", 0.0)
+            batches = self._read_batches(sequence_input, step, kept_records if validation else None)
 
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
-        kept_records: list[SeqRecord] = []
-        batches = self._iter_record_batches(self._as_record_iterable(sequence_input))
-        while True:
-            with profiling.phase("wire.read"):
-                rec_batch = next(batches, None)
-            if rec_batch is None:
-                break
-            with profiling.phase("wire.encode"):
-                encoded = [(rec.id, dna.encode(rec.seq)) for rec in rec_batch]
-            with profiling.phase("wire.prepare"):
-                batch = prepare_batch(encoded, self.k, step=step, chunk=self.engine.chunk)
+        for batch in batches:
             counts = self.engine.count_hits(batch)
             with profiling.phase("model.hits"):
-                for i, rec in enumerate(rec_batch):
-                    hits[rec.id] = self._record_hits(counts[i], exclude_ids, display_name)
-                    num_kmers[rec.id] = batch.num_kmers[i]
-            if validation:
-                kept_records.extend(rec_batch)
+                for i, rid in enumerate(batch.record_names):
+                    hits[rid] = self._record_hits(counts[i], exclude_ids, display_name)
+                    num_kmers[rid] = batch.num_kmers[i]
         if not hits:
             raise ValueError("No sequences found in input")
         if validation:

@@ -154,8 +154,9 @@ def parse_file(path: Path):
 
     ``codes`` are the concatenated uint8 codes, ``offsets`` the int64
     record offsets (len = n_records + 1), ``ids`` the record ids.  A
-    call is the phase ``wire.parse``: on the classify path, the reads
-    route's parse or the records route's check of the route.
+    call is the phase ``wire.parse``: on the classify path, the one parse
+    of a file, which both the reads route and the records route of a
+    FASTA file build their batches from.
     """
     lib = _load()
     if lib is None:
@@ -181,6 +182,49 @@ def parse_file(path: Path):
         raise ValueError(f"cannot parse {path}")
     ids = ids_buf.raw[: id_bytes.value].decode("utf-8", "replace").split("\0")[:nrec]
     return codes, offsets[: nrec + 1], ids
+
+
+# headers longer than this may pass parse_file's 64 KiB line buffer,
+# which then cuts an id short
+_MAX_HEADER_BYTES = 65000
+
+
+def fasta_parse_matches_reader(path: Path, offsets: np.ndarray, ids: list[str]) -> bool:
+    """Whether :func:`parse_file`'s records of a FASTA file are exactly
+    those of the line reader (``io.fasta.parse_fasta``) and
+    ``dna.encode``: the same ids, bases and codes, in the same order.
+
+    A scan of the file's bytes and a look at ``offsets`` and ``ids``
+    refuse every file on which the two could differ: no record, or bases
+    before the first header (the reader raises); a byte >= 0x80 (the
+    reader decodes UTF-8: one code a character, not a byte); a control
+    byte other than tab, newline, and carriage return right before a
+    newline (a NUL ends the parse's line; the reader ends a line at a
+    bare carriage return, and an id at a vertical tab, a form feed or
+    0x1c-0x1f); an empty id (the reader skips whitespace after ``>``); a
+    ``>`` that does not start a line, or a header of 65,000 bytes or
+    more (the parse's 64 KiB buffer could read a header inside a line,
+    or cut an id short).
+    """
+    if not ids or offsets[0] != 0 or "" in ids:
+        return False
+    data = np.fromfile(path, dtype=np.uint8)
+    if data.max() >= 0x80:
+        return False
+    # one pass finds every byte below "?": the control bytes, the line
+    # ends and each ">" (with spaces, digits and punctuation)
+    pos = np.flatnonzero(data < 0x3F)
+    byte = data[pos]
+    if ((byte < 0x20) & (byte != 0x09) & (byte != 0x0A) & (byte != 0x0D)).any():
+        return False
+    cr = pos[byte == 0x0D]
+    if len(cr) and (cr[-1] + 1 == len(data) or (data[cr + 1] != 0x0A).any()):
+        return False
+    headers = pos[byte == ord(">")]
+    if len(headers) != len(ids) or (data[headers[headers > 0] - 1] != 0x0A).any():
+        return False
+    line_ends = np.append(pos[byte == 0x0A], len(data))
+    return bool((line_ends[np.searchsorted(line_ends, headers)] - headers).max() < _MAX_HEADER_BYTES)
 
 
 # ---------------------------------------------------------------- index build

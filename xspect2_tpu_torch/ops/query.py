@@ -147,8 +147,7 @@ class PreparedBatch:
     """Host-prepared flat batch of records for one device query call."""
 
     codes: np.ndarray  # uint8 [num_positions + k - 1]
-    rec_ids: np.ndarray  # int32 [num_positions]
-    valid: np.ndarray  # bool  [num_positions]  (k-mer start validity)
+    num_positions: int  # a power-of-two number of chunks, padding included
     record_names: list[str] = field(default_factory=list)
     num_kmers: list[int] = field(default_factory=list)  # per record, ceil((len-k+1)/step)
     # record start positions in the flat code tensor ([num_records + 1],
@@ -159,6 +158,10 @@ class PreparedBatch:
     # phase restarts at its own offset), so it does not reduce the
     # positions the device visits
     step: int = 1
+    # the raw wire's per-position arrays (:attr:`rec_ids`, :attr:`valid`):
+    # given by a fixed batch, else made from the offsets on first read
+    _rec_ids: np.ndarray | None = field(default=None, repr=False, compare=False)
+    _valid: np.ndarray | None = field(default=None, repr=False, compare=False)
     # device tensors of the compact wire, keyed by (max_records, device):
     # engines querying the same batch share one pack and one copy
     _device_wire: dict = field(default_factory=dict, repr=False, compare=False)
@@ -168,8 +171,54 @@ class PreparedBatch:
         return len(self.record_names)
 
     @property
-    def num_positions(self) -> int:
-        return len(self.rec_ids)
+    def rec_ids(self) -> np.ndarray:
+        """int32 [num_positions]: each position's record, 0 on padding."""
+        if self._rec_ids is None:
+            self._make_position_arrays()
+        return self._rec_ids
+
+    @property
+    def valid(self) -> np.ndarray:
+        """bool [num_positions]: whether a k-mer window of the position's
+        record starts there on the record's sparse-sampling phase."""
+        if self._valid is None:
+            self._make_position_arrays()
+        return self._valid
+
+    def _make_position_arrays(self) -> None:
+        k = len(self.codes) - self.num_positions + 1  # the codes end in a k-1 halo
+        lengths = np.diff(self.offsets)
+        n_real = int(self.offsets[-1])
+        owner = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+        rel = np.arange(n_real, dtype=np.int64) - self.offsets[owner]
+        self._rec_ids = np.zeros(self.num_positions, dtype=np.int32)
+        self._rec_ids[:n_real] = owner
+        self._valid = np.zeros(self.num_positions, dtype=bool)
+        self._valid[:n_real] = (rel <= (lengths - k)[owner]) & (rel % self.step == 0)
+
+
+def pad_codes(codes: np.ndarray, k: int, chunk: int = DEFAULT_CHUNK) -> np.ndarray:
+    """Records' codes laid end to end, as a batch's flat code tensor: a
+    power-of-two number of ``chunk``-sized chunks plus a k-1 halo, the
+    padding invalid."""
+    n_pos = len(codes)
+    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
+    padded = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
+    padded[:n_pos] = codes
+    return padded
+
+
+def batch_from_flat(padded: np.ndarray, offsets: np.ndarray, names: list[str], k: int,
+                    step: int = 1) -> PreparedBatch:
+    """A :class:`PreparedBatch` of records laid end to end in ``padded``
+    (:func:`pad_codes`): record r spans ``[offsets[r], offsets[r + 1])``,
+    ``offsets[0]`` is 0.  Every record must be strictly longer than k."""
+    lengths = np.diff(offsets)
+    if (lengths <= k).any():
+        raise ValueError("Invalid sequence, must be longer than k")
+    num_kmers = ((lengths - k + step) // step).tolist()
+    return PreparedBatch(padded, len(padded) - (k - 1), list(names), num_kmers,
+                         offsets.astype(np.int32), step)
 
 
 def prepare_batch(records, k: int, step: int = 1, chunk: int = DEFAULT_CHUNK):
@@ -181,39 +230,14 @@ def prepare_batch(records, k: int, step: int = 1, chunk: int = DEFAULT_CHUNK):
     are never valid.
     """
     names = []
-    num_kmers = []
-    code_parts = []
-    rec_id_parts = []
-    valid_parts = []
-    for idx, (name, codes) in enumerate(records):
-        n = len(codes)
-        if not n > k:
-            raise ValueError("Invalid sequence, must be longer than k")
+    parts = []
+    for name, codes in records:
         names.append(name)
-        nk = n - k + 1
-        num_kmers.append(math.ceil(nk / step))
-        code_parts.append(codes)
-        rec_id_parts.append(np.full(n, idx, dtype=np.int32))
-        v = np.zeros(n, dtype=bool)
-        v[0:nk:step] = True
-        valid_parts.append(v)
-
-    codes = np.concatenate(code_parts) if code_parts else np.zeros(0, dtype=np.uint8)
-    rec_ids = np.concatenate(rec_id_parts) if rec_id_parts else np.zeros(0, np.int32)
-    valid = np.concatenate(valid_parts) if valid_parts else np.zeros(0, dtype=bool)
-
-    n_pos = len(rec_ids)
-    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
-    codes_pad = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
-    codes_pad[:n_pos] = codes
-    rec_ids_pad = np.zeros(n_pad, dtype=np.int32)
-    rec_ids_pad[:n_pos] = rec_ids
-    valid_pad = np.zeros(n_pad, dtype=bool)
-    valid_pad[:n_pos] = valid
-
-    offsets = np.zeros(len(names) + 1, dtype=np.int32)
-    np.cumsum([len(c) for c in code_parts], out=offsets[1:])
-    return PreparedBatch(codes_pad, rec_ids_pad, valid_pad, names, num_kmers, offsets, step)
+        parts.append(codes)
+    offsets = np.zeros(len(parts) + 1, dtype=np.int64)
+    np.cumsum([len(c) for c in parts], out=offsets[1:])
+    codes = np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+    return batch_from_flat(pad_codes(codes, k, chunk), offsets, names, k, step)
 
 
 def prepare_fixed_batch(
@@ -239,7 +263,8 @@ def prepare_fixed_batch(
     valid = np.zeros(n_pad, dtype=bool)
     valid[:n_pos] = np.broadcast_to(valid_row, (n, length)).reshape(-1)
     return PreparedBatch(
-        codes, rec_ids, valid, [f"read{i}" for i in range(n)], [math.ceil(nk / step)] * n
+        codes, n_pad, [f"read{i}" for i in range(n)], [math.ceil(nk / step)] * n,
+        _rec_ids=rec_ids, _valid=valid,
     )
 
 

@@ -191,18 +191,8 @@ class ShardedClassifier:
             shards[target].append(rec)
             loads[target] += len(rec[1])
 
-        batches = []
-        for shard_records in shards:
-            if shard_records:
-                batches.append(prepare_batch(shard_records, self.index.k, step, self.chunk))
-            else:
-                batches.append(
-                    PreparedBatch(
-                        np.full(self.chunk + self.index.k - 1, 255, np.uint8),
-                        np.zeros(self.chunk, np.int32),
-                        np.zeros(self.chunk, bool),
-                    )
-                )
+        # an empty shard is one chunk of padding
+        batches = [prepare_batch(shard, self.index.k, step, self.chunk) for shard in shards]
         max_records = _next_pow2(max(8, max(b.num_records for b in batches) or 1))
         return batches, max_records
 

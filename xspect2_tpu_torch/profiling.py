@@ -14,10 +14,12 @@ children's:
 - ``classify.request`` (a facade call), holding ``classify.load``
   (``load_cached``; ``model.load`` under it on a miss),
   ``classify.predict`` (a model's ``predict``) and ``result.save``;
-- under ``classify.predict``: ``wire.parse`` (``native.parse_file``: the
-  reads route's parse, and the records route's check of the route),
-  the records route's ``wire.read`` (a batch pulled from the record
-  reader), ``wire.encode`` and ``wire.prepare`` (a batch each), the
+- under ``classify.predict``: ``wire.parse`` (``native.parse_file``: a
+  file's one parse, which the reads route and a FASTA file's records
+  route build on), the records route's ``wire.read`` (a batch pulled
+  from the line reader or cut from the parse, and the scan of the
+  file's bytes that lets the parse serve), ``wire.encode`` (a batch's
+  flat codes) and ``wire.prepare`` (the rest of its batch), the
   reads route's ``engine.reads`` (pack, upload, launches and fetch, with
   ``query.pack`` and ``engine.reads.fetch`` under it), ``model.hits``
   (the ranked hit dictionaries, once a batch or file), and the SVM
@@ -28,7 +30,11 @@ children's:
   (as the JAX package's engine records them);
 - ``model.load`` (a model read from disk: a cache miss, or no cache) and
   ``kernels.build`` (a round of kernel libraries compiled), which a warm
-  process no longer records.
+  process no longer records;
+- the counters ``wire.records_from_parse`` and
+  ``wire.records_from_reader`` (:func:`add` with 0.0 seconds): a file
+  whose records route took its batches from the parse or from the line
+  reader.
 
 Usage::
 
@@ -74,7 +80,12 @@ def phase(name: str):
 
 
 def add(name: str, seconds: float) -> None:
-    """Record an externally measured duration."""
+    """Record an externally measured duration, or with 0.0 count an
+    event.  While a profile records, a call is also an empty
+    ``record_function`` of its name."""
+    if _profiler_enabled():
+        with record_function(name):
+            pass
     _totals[name] += seconds
     _counts[name] += 1
 
