@@ -2,7 +2,10 @@
 
 A cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 (``configs/<name>.json``: the model's settings and sizes) and a traffic
-mix (``traffic/<name>.json``: the files one client sends).  A run:
+mix (``traffic/<name>.json``: the files one client sends).  The
+configuration's ``facade`` names its kind of model: the module
+``kinds/<facade>.py`` (interface: ``kinds/species.py``), which gives
+every step that depends on the kind.  A run:
 
 1. set-up: makes the genomes from the seed, writes the training files,
    trains the cell's model through the port's own ``fit`` (as
@@ -10,16 +13,16 @@ mix (``traffic/<name>.json``: the files one client sends).  A run:
    run's temporary directory, writes a pool of distinct input files, and
    warms the facade up on one full pass of the pool, so that every
    file's shapes have run once before the window;
-2. the window: one client sends pool files in turn to the classify
-   facade, back to back, while less than ``seconds`` have passed; the
-   window ends when the last file started has its result JSON written;
-3. the check: the program's state freed, the plain reference
-   (:mod:`bench_port.reference`) works the index (and the SVM head) out
-   again from the genomes and judges a sample of the window's result
-   JSON files, drawn from the seed, the one with the most records in it,
-   and, for a model with an SVM head, the head's decision values on the
-   rows the timed path handed it, taken from the loaded head after the
-   window;
+2. the window: one client sends pool files in turn to the kind's
+   classify facade, back to back, while less than ``seconds`` have
+   passed; the window ends when the last file started has its result
+   JSON written;
+3. the check: the program's state freed, the kind's plain reference
+   works the model out again from the genomes and judges a sample of
+   the window's result JSON files, drawn from the seed, the one with the
+   most records in it, and, where the reference gives decisions (an SVM
+   head), the decisions the kind captured from the loaded model after
+   the window on the rows the timed path handed it;
 4. the result: the cell's metrics, each read by ``metrics/<name>.py``.
 
 A traced run (``trace``) wraps the port's layers in host spans
@@ -35,7 +38,7 @@ import sys
 import tempfile
 import time
 import traceback
-from contextlib import ExitStack, contextmanager, nullcontext, redirect_stdout
+from contextlib import ExitStack, nullcontext, redirect_stdout
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -43,10 +46,10 @@ import numpy as np
 
 from bench_port import roofline, synthetic
 from bench_port.measure import Request, Run
-from bench_port.reference import Reference, differences, expected_result, geometry, max_kmers
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
+KINDS = BENCH / "kinds"
 FORBIDDEN = ("jax", "jaxlib", "flax", "xspect2_tpu")
 # the widest gap of a sampled file's head decision from the reference's
 # float64 one: sound runs read ~1e-15, the float32 control ~1e-7 (PERF.md)
@@ -80,11 +83,17 @@ def load_plan(workload: str, spec: dict | None = None, overrides: dict | None = 
     overrides = overrides or {}
     config.update(overrides.get("config", {}))
     traffic.update(overrides.get("traffic", {}))
-    if config["facade"] == "species":
-        config["class_names"] = [f"{1000 + i}" for i in range(config["num_classes"])]
-    else:
-        config["class_names"] = [config["genus"]]
-    return dict(spec=spec, cell=cell, config=config, traffic=traffic)
+    kind = load_kind(config["facade"])
+    config["class_names"] = kind.class_names(config)
+    return dict(spec=spec, cell=cell, config=config, traffic=traffic, kind=kind)
+
+
+def load_kind(name: str):
+    """The kind of model ``kinds/<name>.py``, loaded from its file."""
+    spec = importlib.util.spec_from_file_location(f"bench_port_kind_{name}", KINDS / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def metric_entries(spec: dict, workload: str, trace: bool) -> list:
@@ -126,66 +135,6 @@ class PoolFile:
         return len(self.ids)
 
 
-def make_training(config: dict, rng: np.random.Generator, tree: Path):
-    """Genomes and training files: ``(genomes, training, svm_sets,
-    train_fn)``, ``training`` one list of code arrays a class (what the
-    reference indexes), ``svm_sets`` ``[(label, [code arrays])]``, and
-    ``train_fn(device)`` training and saving the port's model."""
-    names = config["class_names"]
-    n_genomes = config.get("num_genomes", len(names))
-    genomes = synthetic.make_genomes(rng, n_genomes, config["genome_bp"])
-    tree.mkdir(parents=True)
-    svm_sets = []
-    if config["facade"] == "species":
-        cobs = tree / "cobs"
-        cobs.mkdir()
-        for name, g in zip(names, genomes):
-            synthetic.write_fasta(cobs / f"{name}.fasta", [(f"{name}_genome", g)])
-        training = [[g] for g in genomes]
-        if config["svm"]:
-            lo, hi = config["svm_contigs"]
-            span = config["svm_genome_bp"]
-            for ci, name in enumerate(names):
-                (tree / "svm" / name).mkdir(parents=True)
-                for j in range(config["svm_genomes_per_class"]):
-                    s = int(rng.integers(0, config["genome_bp"] - span))
-                    contigs = synthetic.simulate_assembly(genomes[ci][s : s + span], rng, f"{name}s{j}",
-                                                          int(rng.integers(lo, hi + 1)), gaps=1)
-                    synthetic.write_fasta(tree / "svm" / name / f"GCF_{name}{j}.fasta", contigs)
-                    svm_sets.append((name, [c for _, c in contigs]))
-
-        def train_fn(device):
-            from xspect2_tpu_torch import train
-            from xspect2_tpu_torch.definitions import get_xspect_model_path
-            from xspect2_tpu_torch.models.svm_model import ProbabilisticFilterSVMModel
-
-            model = ProbabilisticFilterSVMModel(
-                k=train.SPECIES_K, model_display_name=config["genus"], author=None, author_email=None,
-                model_type="Species", base_path=get_xspect_model_path(), kernel=train.SVM_KERNEL,
-                c=train.SVM_C, device=device)
-            model.fit(cobs, tree / "svm", svm_step=1)
-            model.save()
-            return model.index
-    else:
-        meta = tree / f"{config['genus']}.fasta"
-        synthetic.write_fasta(meta, [(f"{1000 + i}_genome", g) for i, g in enumerate(genomes)])
-        training = [list(genomes)]
-
-        def train_fn(device):
-            from xspect2_tpu_torch import train
-            from xspect2_tpu_torch.definitions import get_xspect_model_path
-            from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
-
-            model = ProbabilisticSingleFilterModel(
-                k=train.SPECIES_K, model_display_name=config["genus"], author=None, author_email=None,
-                model_type="Genus", base_path=get_xspect_model_path(), device=device)
-            model.fit(meta, config["genus"])
-            model.save()
-            return model.index
-
-    return genomes, training, svm_sets, train_fn
-
-
 def make_pool(traffic: dict, genomes: np.ndarray, rng: np.random.Generator, pool_dir: Path, k: int) -> list:
     """The traffic's pool of distinct input files.  Every seed gets the
     same sizes (contig counts spread evenly over the range) in another
@@ -225,28 +174,20 @@ def make_pool(traffic: dict, genomes: np.ndarray, rng: np.random.Generator, pool
     return pool
 
 
-def facade(config: dict):
-    """``call(path, out, device)``: the configuration's classify facade."""
-    from xspect2_tpu_torch import classify
-
-    fn = classify.classify_species if config["facade"] == "species" else classify.classify_genus
-    return lambda path, out, device: fn(config["genus"], path, out, device=device)
-
-
 def run_requests(call, pool: list, out_dir: Path, device, seconds: float | None, count: int | None = None,
-                 head_rows=None):
+                 capture=None):
     """Send pool files in turn to ``call``, back to back: ``count`` of them,
     or while less than ``seconds`` have passed.  Returns the requests;
-    the window ends with the last one's result written.  ``head_rows``
-    (a :class:`HeadRows`) is told which request is running."""
+    the window ends with the last one's result written.  ``capture``
+    (the kind's) is told which request is running."""
     out_dir.mkdir(parents=True, exist_ok=True)
     requests = []
     start = time.perf_counter()
     i = 0
     while (i < count) if count is not None else (time.perf_counter() - start < seconds):
         pf = pool[i % len(pool)]
-        if head_rows is not None:
-            head_rows.request = i
+        if capture is not None:
+            capture.request = i
         t0 = time.perf_counter()
         ok, error = True, ""
         try:
@@ -259,60 +200,7 @@ def run_requests(call, pool: list, out_dir: Path, device, seconds: float | None,
     return requests
 
 
-class HeadRows:
-    """The rows the timed path hands the SVM head, by request: while
-    :meth:`capture` is active, each ``SVMHead.predict`` call keeps its
-    head and rows under the running request's index."""
-
-    def __init__(self):
-        self.request = None
-        self.rows = {}
-
-    @contextmanager
-    def capture(self):
-        from xspect2_tpu_torch.models.svm_head import SVMHead
-
-        inner, box = SVMHead.predict, self
-
-        def predict(head, x):
-            box.rows[box.request] = (head, np.array(x, dtype=np.float64))
-            return inner(head, x)
-
-        SVMHead.predict = predict
-        try:
-            yield self
-        finally:
-            SVMHead.predict = inner
-
-    def decisions(self, requests: list) -> dict:
-        """The loaded head's float64 decision values [n_pairs] on the rows
-        each of ``requests`` handed it, by request index (none where no
-        row was handed); the heads and rows are dropped after."""
-        out = {}
-        for r in requests:
-            if r.index in self.rows:
-                head, x = self.rows[r.index]
-                out[r.index] = head.decision_values(x).cpu().numpy().astype(np.float64)[0]
-        self.rows.clear()
-        return out
-
-
 # ------------------------------------------------------------------ the check
-
-
-def file_answers(ref: Reference, config: dict, pf: PoolFile, step: int, dtype=np.float64):
-    """``(result, decisions)``: the result JSON the reference ``ref`` gives
-    for one pool file, and its head's decision values [n_pairs] in
-    ``dtype`` on the file's total scores (None without a head)."""
-    counts = ref.counts(pf.records, step)
-    prediction = tied = decisions = None
-    if ref.svm is not None:
-        row = ref.total_scores(pf.lengths, counts, step)
-        decisions = ref.svm.decisions([row], dtype)[0].astype(np.float64)
-        prediction = ref.predict(pf.lengths, counts, step, dtype)
-        tied = ref.possible_labels(pf.lengths, counts, step)
-    result = expected_result(config, pf.ids, pf.lengths, counts, step, pf.path.name, prediction, tied)
-    return result, decisions
 
 
 def head_gap(got, want) -> float:
@@ -331,34 +219,27 @@ def sample_requests(requests: list, size: int, seed: int) -> list:
     return [longest] + [r for r in order if r is not longest][: size - 1]
 
 
-def reference_for(plan: dict, training, svm_sets, device, probes=None) -> Reference:
-    ref = Reference(plan["config"], training, device, probes)
-    if plan["config"]["svm"]:
-        ref.fit_svm(svm_sets, plan["traffic"]["step"])
-    return ref
-
-
-def judge(plan: dict, ref: Reference, pool: list, sample: list, out_dir: Path,
-          decisions: dict | None = None) -> dict:
-    """Wrong answers in the sampled result files against the reference,
-    and, with a head, the widest gap of ``decisions`` (by request index)
-    from the reference's float64 ones; a sampled file whose decisions are
-    missing is one wrong answer more."""
+def judge(plan: dict, ref, pool: list, sample: list, out_dir: Path, decisions: dict | None = None) -> dict:
+    """Wrong answers in the sampled result files against the kind's
+    reference ``ref``, and, where it gives decisions, the widest gap of
+    ``decisions`` (by request index) from its float64 ones; a sampled file
+    whose decisions are missing is one wrong answer more."""
     step = plan["traffic"]["step"]
     wrong = checked = tied = 0
-    gap = 0.0 if ref.svm is not None else None
+    gap = None
     for r in sample:
         pf = pool[r.pool_index]
         path = out_dir / f"{r.index:05d}.json"
         got = json.loads(path.read_text(encoding="utf-8")) if path.exists() else {}
-        want, want_dec = file_answers(ref, plan["config"], pf, step)
+        want, want_dec = ref.answers(pf, step)
         if want_dec is not None:
+            gap = 0.0 if gap is None else gap
             if decisions is None or r.index not in decisions:
                 log(f"{path.name} ({pf.path.name}): no head decisions")
                 wrong += 1
             else:
                 gap = max(gap, head_gap(decisions[r.index], want_dec))
-        diff = differences(got, want)
+        diff = ref.differences(got, want)
         if diff:
             log(f"{path.name} ({pf.path.name}): {len(diff)} wrong answers, first {diff[:3]}")
         wrong += len(diff)
@@ -372,7 +253,8 @@ def judge(plan: dict, ref: Reference, pool: list, sample: list, out_dir: Path,
 def checks_of(verdict: dict, failed: int) -> dict:
     """The numbers compared, each beside its limit: ``wrong_answers`` (an
     answer that never came is a wrong one: a failed request's, or the
-    sample's when no request completed) and, with a head, ``head_gap``."""
+    sample's when no request completed) and, where the reference gave
+    decisions, ``head_gap``."""
     wrong = verdict["wrong"] + failed + (verdict["files"] == 0)
     checks = {"wrong_answers": {"value": wrong, "limit": 0}}
     if verdict["head_gap"] is not None:
@@ -388,25 +270,22 @@ def is_correct(checks: dict) -> bool:
 
 
 def set_up(plan: dict, seed: int, device, work_dir: Path) -> dict:
-    """Everything before the window but the warm-up: ``{training,
-    svm_sets, pool, geom}``; the model trained and saved."""
+    """Everything before the window but the warm-up: ``{training, pool}``
+    (``training``: the kind's inputs for its reference); the model
+    trained and saved."""
     config, traffic = plan["config"], plan["traffic"]
     rng = np.random.default_rng(seed)
     t0 = time.time()
-    genomes, training, svm_sets, train_fn = make_training(config, rng, work_dir / "train")
+    genomes, training, train_fn = plan["kind"].make_training(config, rng, work_dir / "train")
     t1 = time.time()
-    index = train_fn(device)
-    trained = dict(num_hashes=index.num_hashes, fields_per_word=index.fields_per_word,
-                   class_words=index.class_words, num_blocks=index.num_blocks, mb=index.nbytes / 1e6)
-    del index
+    trained = train_fn(device)
     gc.collect()
     t2 = time.time()
     pool = make_pool(traffic, genomes, rng, work_dir / "pool", config["k"])
     t3 = time.time()
-    log(f"set-up: data {t1 - t0:.2f} s, training {t2 - t1:.2f} s (index {trained}), "
+    log(f"set-up: data {t1 - t0:.2f} s, training {t2 - t1:.2f} s ({trained}), "
         f"pool of {len(pool)} files {t3 - t2:.2f} s")
-    return dict(training=training, svm_sets=svm_sets, pool=pool,
-                geom=geometry(config, max_kmers(config, training)))
+    return dict(training=training, pool=pool)
 
 
 def free_program_state(device) -> None:
@@ -443,19 +322,19 @@ def run_cell(plan: dict, seed: int, seconds: float, trace: bool, device, t_start
     from bench_port import spans as spans_mod
     from bench_port import tracing
 
-    config, traffic, cell = plan["config"], plan["traffic"], plan["cell"]
+    config, traffic, cell, kind = plan["config"], plan["traffic"], plan["cell"], plan["kind"]
     with tempfile.TemporaryDirectory(prefix="bench_port-", dir=work_root) as tmp:
         work_dir = Path(tmp)
         os.environ["XSPECT_DATA_ROOT"] = str(work_dir / "xspect-data")
         with redirect_stdout(sys.stderr):
             state = set_up(plan, seed, device, work_dir)
             pool = state["pool"]
-            call = facade(config)
+            call = kind.facade(config)
             spans = spans_mod.Spans(profile=trace)
-            head_rows = HeadRows()
+            capture = kind.capture(config)
             with ExitStack() as stack:
-                if config["svm"]:
-                    stack.enter_context(head_rows.capture())
+                if capture is not None:
+                    stack.enter_context(capture)
                 if trace:
                     stack.enter_context(spans_mod.port_spans(spans))
                 run_requests(call, pool, work_dir / "warmup", device, None, len(pool))
@@ -480,10 +359,12 @@ def run_cell(plan: dict, seed: int, seconds: float, trace: bool, device, t_start
                 gc.collect()
                 gc.freeze()
                 w0 = time.time()
+                cpu0 = time.process_time()
                 with record_function(tracing.WINDOW) if trace else nullcontext():
-                    requests = run_requests(call, pool, work_dir / "out", device, seconds,
-                                            head_rows=head_rows)
+                    requests = run_requests(call, pool, work_dir / "out", device, seconds, capture=capture)
                 window_s = requests[-1].t1 - requests[0].t0
+                # a slow window that used as much CPU as a fast one was slowed by the host
+                log(f"cpu: this process {time.process_time() - cpu0:.2f} s in the {window_s:.2f} s window")
                 if torch.device(device).type == "cuda":
                     torch.cuda.synchronize()
                 phases = profiling.report()
@@ -492,15 +373,15 @@ def run_cell(plan: dict, seed: int, seconds: float, trace: bool, device, t_start
                 summary = tracing.summarize(trace_path)
             gc.unfreeze()
             dev = device_record(device, summary)
-            # the sample's head decisions from the loaded head, then the
+            # the sample's decisions from the loaded model, then the
             # program's state freed
             sample = sample_requests(requests, traffic["sample_files"], seed)
-            decisions = head_rows.decisions(sample)
+            decisions = capture.decisions(sample) if capture is not None else None
             free_program_state(device)
 
             # the check, after the window, the peak read and the program's state freed
             t_ref = time.time()
-            ref = reference_for(plan, state["training"], state["svm_sets"], device)
+            ref = kind.reference(plan, state["training"], device)
             t_judge = time.time()
             verdict = judge(plan, ref, pool, sample, work_dir / "out", decisions)
             del ref
@@ -513,11 +394,7 @@ def run_cell(plan: dict, seed: int, seconds: float, trace: bool, device, t_start
         run = Run(setup_s=w0 - t_start, window_s=window_s, requests=requests, work=work,
                   spans=dict(spans.seconds), span_calls=dict(spans.calls), phases=phases, trace=summary)
         if trace:
-            lookup = traffic["lookup"]
-            run.bounds[lookup["kernel"]] = sum(
-                roofline.lookup_bound(state["geom"], sum(pool[r.pool_index].lengths), r.records,
-                                      pool[r.pool_index].counted, lookup["offsets"])["seconds"]
-                for r in done)
+            run.bounds.update(kind.bounds(plan, state, done))
         metrics = {}
         for m in metric_entries(plan["spec"], cell["name"], trace):
             value = read_metric(m["name"], run)

@@ -1,4 +1,4 @@
-"""Milliseconds an assembly in the records route's check of the route, a native parse of the whole file whose result is dropped: the program's phase wire.parse."""
+"""Milliseconds an assembly in the file's one native parse, which picks the route and gives a FASTA file's records route the records its batches are cut from: the program's phase wire.parse."""
 
 
 def read(run):

@@ -1,4 +1,4 @@
-"""The plain reference of both configurations, in plain PyTorch.
+"""The plain reference of the species and genus kinds, in plain PyTorch.
 
 It works out again, from the genomes the benchmark made, what the
 program's set-up derived: the filter's set bits and, for the species
@@ -25,7 +25,6 @@ with fewer probes, the cheaper lookup a later change might be tempted
 by, which breaks the configuration's stated false-positive rate.
 """
 
-import copy
 import math
 
 import numpy as np
@@ -208,12 +207,25 @@ class Reference:
         is tied (see ``OvoSVC.possible_labels``)."""
         return [str(c) for c in self.svm.possible_labels(self.total_scores(lengths, counts, step))]
 
-    def with_probes(self, probes: int) -> "Reference":
-        """This store queried with ``probes`` probes a k-mer (the control),
-        with no head until :meth:`fit_svm`."""
-        other = copy.copy(self)
-        other.probes, other.svm = probes, None
-        return other
+    # ------------------------------------------------------------------ the check
+
+    def answers(self, pf, step: int, dtype=np.float64):
+        """``(result, decisions)``: the result JSON the facade has to write
+        for one pool file, and the head's decision values [n_pairs] in
+        ``dtype`` on the file's total scores (None without a head)."""
+        counts = self.counts(pf.records, step)
+        prediction = tied = decisions = None
+        if self.svm is not None:
+            row = self.total_scores(pf.lengths, counts, step)
+            decisions = self.svm.decisions([row], dtype)[0].astype(np.float64)
+            prediction = self.predict(pf.lengths, counts, step, dtype)
+            tied = self.possible_labels(pf.lengths, counts, step)
+        result = expected_result(self.config, pf.ids, pf.lengths, counts, step, pf.path.name, prediction, tied)
+        return result, decisions
+
+    @staticmethod
+    def differences(got: dict, want: dict) -> list:
+        return differences(got, want)
 
 
 def num_kmers(length: int, k: int, step: int) -> int:

@@ -58,6 +58,16 @@ def lookup_bound(geom: dict, bases: int, records: int, counted: int, offsets: bo
                 by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def window_bounds(geom: dict, lookup: dict, pool: list, done: list) -> dict:
+    """``{kernel: seconds}``: the bound of the lookup kernel ``lookup``
+    names over the completed requests ``done`` of ``pool``, one launch a
+    request (``lookup["offsets"]``: the records route's)."""
+    return {lookup["kernel"]: sum(
+        lookup_bound(geom, sum(pool[r.pool_index].lengths), r.records, pool[r.pool_index].counted,
+                     lookup["offsets"])["seconds"]
+        for r in done)}
+
+
 def counted_kmers(records, k: int, step: int) -> int:
     """Windows at ``step`` without an N over code arrays (255 = N)."""
     import numpy as np

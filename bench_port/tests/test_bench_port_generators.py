@@ -37,7 +37,7 @@ def test_training_files_and_pool_repeat_for_one_seed(tmp_path, cell):
 
     def files(seed, where):
         rng = np.random.default_rng(seed)
-        genomes, _, _, _ = harness.make_training(plan["config"], rng, where / "train")
+        genomes, _, _ = plan["kind"].make_training(plan["config"], rng, where / "train")
         pool = harness.make_pool(plan["traffic"], genomes, rng, where / "pool", plan["config"]["k"])
         return sorted(where.rglob("*.fast*")), pool
 

@@ -79,20 +79,29 @@ def test_every_tiny_cell_is_correct_through_the_whole_harness(tmp_path, cell):
     assert set(res["metrics"]) == {work, "setup_s"} and res["metrics"][work]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["species40-reads", "species40-assemblies"])
+# a traced run's per-layer metrics on the CPU, by route: the benchmark's
+# wrappers and the program's phases (no kernel runs there, so no roofline)
+READS_LAYERS = {"result_json_us.reads", "hit_dicts_us.reads", "parse_pack_us.reads", "engine_us.reads",
+                "device_idle.reads", "result_save_us.reads", "result_encode_us.reads", "model_hits_us.reads",
+                "wire_us.reads", "engine_reads_us.reads", "engine_fetch_us.reads"}
+RECORDS_LAYERS = {"result_json_ms.assemblies", "request_p95_ms.assemblies", "hit_dicts_ms.assemblies",
+                  "parse_prepare_ms.assemblies", "engine_ms.assemblies", "device_idle.assemblies"}
+TRACED = {
+    "species40-reads": READS_LAYERS,
+    "genus160-reads": READS_LAYERS,
+    "species40-assemblies": RECORDS_LAYERS | {
+        "svm_head_ms.assemblies", "facade_ms.assemblies", "result_save_ms.assemblies",
+        "result_encode_ms.assemblies", "model_hits_ms.assemblies", "wire_ms.assemblies",
+        "route_check_ms.assemblies", "svm_scores_ms.assemblies", "head_predict_ms.assemblies"},
+    "genus160-assemblies": RECORDS_LAYERS,
+}
+
+
+@pytest.mark.parametrize("cell", sorted(TRACED))
 def test_a_traced_run_reads_its_per_layer_metrics(tmp_path, cell):
     res = tiny.run(cell, trace=True, tmp_path=tmp_path)
     assert res["correct"]
-    got = set(res["metrics"])
-    if cell.endswith("reads"):
-        want = {"result_json_us.reads", "hit_dicts_us.reads", "parse_pack_us.reads", "engine_us.reads",
-                "device_idle.reads"}
-    else:
-        want = {"result_json_ms.assemblies", "request_p95_ms.assemblies", "hit_dicts_ms.assemblies",
-                "svm_head_ms.assemblies", "parse_prepare_ms.assemblies", "engine_ms.assemblies",
-                "device_idle.assemblies"}
-    # no kernel runs on the CPU, so no roofline is read there
-    assert got == want
+    assert set(res["metrics"]) == TRACED[cell]
     assert res["device"]["window_s"] > 0 and "breakdown" in res
 
 

@@ -21,6 +21,7 @@ TINY = {
     "species40-reads": {"config": SPECIES, "traffic": READS},
     "species40-assemblies": {"config": SPECIES, "traffic": ASSEMBLIES},
     "genus160-reads": {"config": GENUS, "traffic": READS},
+    "genus160-assemblies": {"config": GENUS, "traffic": ASSEMBLIES},
 }
 CELLS = list(TINY)
 SEED = 2**31 + 11
