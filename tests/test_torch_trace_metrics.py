@@ -37,12 +37,24 @@ READERS = {
     "route_check_ms.assemblies": ("species40-assemblies", "assemblies", 1e3, ["wire.parse"], []),
     "svm_scores_ms.assemblies": ("species40-assemblies", "assemblies", 1e3, ["svm.scores"], []),
     "head_predict_ms.assemblies": ("species40-assemblies", "assemblies", 1e3, ["svm.head"], []),
+    "mlst_split_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.split"], []),
+    "mlst_prepare_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.prepare", "query.pack"], []),
+    "mlst_query_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.query"], ["query.pack"]),
+    "mlst_fetch_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.fetch"], []),
+    "mlst_rank_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.rank"], []),
+    "mlst_lookup_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["mlst.lookup"], []),
+    "mlst_save_ms.assemblies": ("mlst7-genomes", "assemblies", 1e3, ["result.save"], []),
 }
+MLST = "mlst7-genomes"
+# the MLST cell's metrics that read no phase: its kernels' roofline shares
+# and its counter, listed just before its phase metrics
+MLST_OTHERS = ["k5_roofline.assemblies", "k6_roofline.assemblies", "mlst_length_groups.assemblies"]
 
 # a traced run's report: every phase of both routes, each with seconds
 # no sum of the others can give, and a parent before its children
 PHASES = [
-    "classify.request", "classify.load", "classify.predict", "model.load", "engine.reads", "wire.parse",
+    "classify.request", "classify.load", "classify.predict", "model.load", "mlst.read", "mlst.split",
+    "mlst.prepare", "mlst.query", "mlst.fetch", "mlst.rank", "mlst.lookup", "engine.reads", "wire.parse",
     "wire.read", "wire.encode", "wire.prepare", "query.pack", "query.dispatch", "query.sync",
     "engine.reads.fetch", "model.hits", "svm.scores", "svm.head", "result.save", "result.scores",
     "result.encode", "result.write",
@@ -86,8 +98,13 @@ def test_a_reader_has_its_entry_in_one_cell(name):
 
 
 def test_the_phase_metrics_close_the_per_layer_list():
+    """The phase metrics close the per-layer list in READERS order: the
+    MLST cell's last, after its other metrics, the rest just before them."""
     names = [m["name"] for m in SPEC["per_layer"]]
-    assert names[-len(READERS):] == list(READERS)
+    mlst = [name for name, spec in READERS.items() if spec[0] == MLST]
+    rest = [name for name in READERS if name not in mlst]
+    assert list(READERS) == rest + mlst
+    assert names[-len(READERS) - len(MLST_OTHERS):] == rest + MLST_OTHERS + mlst
 
 
 # twins that nest: (program-side metric, the wrapper metric, how the
@@ -121,3 +138,55 @@ def test_a_traced_tiny_run_reads_every_phase_metric(tmp_path, monkeypatch, cell)
             assert metrics[program] <= metrics[wrapper], (program, wrapper, metrics)
         else:
             assert metrics[program] >= metrics[wrapper], (program, wrapper, metrics)
+
+
+def test_a_traced_tiny_mlst_run_reads_every_new_metric(tmp_path, monkeypatch):
+    """The harness's traced run of the MLST cell at tiny size on the CPU
+    reads each of its phase metrics and its counter, above 0; its
+    kernels' shares read nothing where the trace holds no device time."""
+    from bench_port.tests import tiny_mlst
+
+    monkeypatch.setenv("XSPECT_DATA_ROOT", str(tmp_path / "unused"))
+    res = tiny_mlst.run(trace=True, tmp_path=tmp_path)
+    assert res["correct"]
+    metrics = {name: m["value"] for name, m in res["metrics"].items()}
+    mine = [name for name, spec in READERS.items() if spec[0] == MLST] + ["mlst_length_groups.assemblies"]
+    assert all(metrics.get(name, 0) > 0 for name in mine), metrics
+    assert not {"k5_roofline.assemblies", "k6_roofline.assemblies"} & set(metrics)
+    assert res["device"]["platform"] == "cpu" and res["device"]["busy_s"] == 0
+
+
+def test_one_classify_mlst_call_reports_each_mlst_phase_and_counter(tmp_path, monkeypatch):
+    """A split record is typed in one K5 dispatch for each allele length of
+    the scheme; the MLST result's save has the result phases."""
+    import numpy as np
+
+    from bench_port import synthetic
+    from bench_port.tests import tiny_mlst
+    from xspect2_tpu_torch import classify, model_cache, profiling
+
+    monkeypatch.setenv("XSPECT_DATA_ROOT", str(tmp_path / "data"))
+    plan = tiny_mlst.plan()
+    config = plan["config"]
+    genomes, scheme, train_fn = plan["kind"].make_training(config, np.random.default_rng(3), tmp_path / "train")
+    train_fn("cpu")
+    synthetic.write_fasta(tmp_path / "genome.fasta", [("g0", genomes[0])])
+    profiling.reset()
+    try:
+        classify.classify_mlst(tmp_path / "genome.fasta", config["organism"], config["scheme"],
+                               tmp_path / "out.json", False, device="cpu")
+        report = profiling.report()
+    finally:
+        model_cache.clear()
+    lengths = len(set(config["loci"].values()))
+    assert report["mlst.length_group"]["calls"] == lengths and report["mlst.length_group"]["seconds"] == 0
+    assert report["mlst.genome_group"]["calls"] == 1 and report["mlst.genome_group"]["seconds"] == 0
+    for name, calls in (("mlst.split", lengths), ("mlst.prepare", lengths), ("mlst.query", lengths),
+                        ("query.pack", lengths), ("mlst.fetch", 1), ("mlst.rank", 1), ("mlst.read", 2),
+                        ("classify.predict", 1), ("result.save", 1), ("result.encode", 1), ("result.write", 2)):
+        assert report[name]["calls"] == calls, (name, report[name])
+    # the genome carries a profile of the table, so its type is reliable and looked up
+    assert report["mlst.lookup"]["calls"] == 1
+    assert report["mlst.query"]["seconds"] >= report["query.pack"]["seconds"]
+    assert report["classify.predict"]["seconds"] >= sum(report[name]["seconds"] for name in (
+        "mlst.read", "mlst.split", "mlst.prepare", "mlst.query", "mlst.fetch", "mlst.rank", "mlst.lookup"))

@@ -14,6 +14,17 @@ FASTA (class name = file name up to the first ".", e.g.
   reliable types are resolved to an ST name via PubMLST, or to an
   ``"N/A (PubMLST lookup failed: ...)"`` string without a network.
 
+Its phases (:mod:`xspect2_tpu_torch.profiling`), under
+``classify.predict``: ``mlst.read`` (each step of the record iterator),
+``mlst.split`` (the splitter and each piece's ``dna.encode``),
+``mlst.prepare`` (``prepare_batch``), ``mlst.query`` (the wire's upload,
+with ``query.pack`` under it, and the fused K4 + K5 + K6 launch),
+``mlst.fetch`` (the counts' one copy back), ``mlst.rank`` (the ranked
+allele dictionaries and the sufficiency rule) and ``mlst.lookup`` (the
+ST-name lookup); the counters ``mlst.length_group`` (a K5 dispatch: one
+group of loci of one allele length) and ``mlst.genome_group`` (a group
+of genomes flushed by ``predict``).
+
 On the device, the loci whose pieces coincide (equal average allele
 length and engine chunk) share one prepared batch and one packed wire,
 ALL of them are queried by one call of the multi-index kernel, one
@@ -30,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from xspect2_tpu_torch import native
+from xspect2_tpu_torch import native, profiling
 from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.definitions import slugify
@@ -195,17 +206,16 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
             size = self.avg_locus_bp_size[li] if use_split else None
             key = (size, engine.chunk)
             if key not in groups:
-                records, seg = [], []
-                for b, s in enumerate(seqs):
-                    pieces = self.sequence_splitter(s, size) if use_split else [s]
-                    for i, p in enumerate(pieces):
-                        records.append((f"g{b}p{i}", dna.encode(p)))
-                        seg.append(b)
-                groups[key] = {
-                    "batch": prepare_batch(records, self.k, step=step, chunk=engine.chunk),
-                    "seg": np.asarray(seg, dtype=np.int32),
-                    "loci": [],
-                }
+                with profiling.phase("mlst.split"):
+                    records, seg = [], []
+                    for b, s in enumerate(seqs):
+                        pieces = self.sequence_splitter(s, size) if use_split else [s]
+                        for i, p in enumerate(pieces):
+                            records.append((f"g{b}p{i}", dna.encode(p)))
+                            seg.append(b)
+                with profiling.phase("mlst.prepare"):
+                    batch = prepare_batch(records, self.k, step=step, chunk=engine.chunk)
+                groups[key] = {"batch": batch, "seg": np.asarray(seg, dtype=np.int32), "loci": []}
             groups[key]["loci"].append(li)
 
         dispatched: list[tuple | None] = [None] * len(self.engines)
@@ -213,25 +223,27 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
             batch, seg, loci = group["batch"], group["seg"], group["loci"]
             engines = [self.engines[li] for li in loci]
             max_records = _next_pow2(max(8, batch.num_records))
-            fused = make_multi_packed_query(
-                [e.geometry() for e in engines],
-                step,
-                batch.num_positions,
-                reduce_mode=reduce_mode,
-                threshold=threshold,
-                num_segments=num_segments,
-                # the typical piece sizes the kernel's thread blocks
-                min_record_len=int(np.median(np.diff(batch.offsets))),
-            )
-            seg_ids = None
-            if num_segments is not None:
-                # padded record slots count no hit, so the segment they
-                # map to is unaffected
-                seg_pad = np.zeros(max_records, dtype=np.int32)
-                seg_pad[: len(seg)] = seg
-                seg_ids = torch.from_numpy(seg_pad).to(self.device)
-            wire = engines[0].upload_records_wire(batch, max_records)
-            outs = fused([e.table for e in engines], *wire, seg_ids)
+            profiling.add("mlst.length_group", 0.0)
+            with profiling.phase("mlst.query"):
+                fused = make_multi_packed_query(
+                    [e.geometry() for e in engines],
+                    step,
+                    batch.num_positions,
+                    reduce_mode=reduce_mode,
+                    threshold=threshold,
+                    num_segments=num_segments,
+                    # the typical piece sizes the kernel's thread blocks
+                    min_record_len=int(np.median(np.diff(batch.offsets))),
+                )
+                seg_ids = None
+                if num_segments is not None:
+                    # padded record slots count no hit, so the segment they
+                    # map to is unaffected
+                    seg_pad = np.zeros(max_records, dtype=np.int32)
+                    seg_pad[: len(seg)] = seg
+                    seg_ids = torch.from_numpy(seg_pad).to(self.device)
+                wire = engines[0].upload_records_wire(batch, max_records)
+                outs = fused([e.table for e in engines], *wire, seg_ids)
             for li, out in zip(loci, outs):
                 dispatched[li] = (out, n_out)
         return dispatched
@@ -270,7 +282,8 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
     @staticmethod
     def _fetch_counts(dispatched: list[tuple]) -> list[np.ndarray]:
         """ONE device-to-host copy for any number of dispatched outputs."""
-        flat = torch.cat([o.reshape(-1) for o, _ in dispatched]).cpu().numpy()
+        with profiling.phase("mlst.fetch"):
+            flat = torch.cat([o.reshape(-1) for o, _ in dispatched]).cpu().numpy()
         out, at = [], 0
         for o, n_rows in dispatched:
             c = flat[at : at + o.numel()].reshape(tuple(o.shape))
@@ -302,6 +315,22 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
         limit_number: int = 5,
     ) -> list[dict]:
         """Host post-processing of the fetched per-locus counts ([C] each)."""
+        with profiling.phase("mlst.rank"):
+            highest_results, result_dict, is_valid = self._rank_alleles(
+                sequence, counts_per_locus, limit, limit_number
+            )
+        if not is_valid:
+            highest_results["Attention:"] = (
+                "This strain type is not reliable due to low kmer hit rates!"
+            )
+        else:
+            with profiling.phase("mlst.lookup"):
+                highest_results["ST_Name"] = self._resolve_strain_type(highest_results)
+        return [{"Strain type": highest_results}, {"All results": result_dict}]
+
+    def _rank_alleles(self, sequence, counts_per_locus, limit, limit_number):
+        """Each locus's alleles ranked (descending count, then name), its
+        argmax, and whether the strain type is reliable."""
         loci_names = list(self.loci.keys())
         result_dict: dict | str = {}
         highest_results: dict = {}
@@ -334,13 +363,7 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
             result_dict = "A Strain type could not be detected because of no kmer matches!"
 
         is_valid = self.has_sufficient_score(highest_results, self.avg_locus_bp_size)
-        if not is_valid:
-            highest_results["Attention:"] = (
-                "This strain type is not reliable due to low kmer hit rates!"
-            )
-        else:
-            highest_results["ST_Name"] = self._resolve_strain_type(highest_results)
-        return [{"Strain type": highest_results}, {"All results": result_dict}]
+        return highest_results, result_dict, is_valid
 
     def _resolve_strain_type(self, highest_results: dict) -> str:
         """Resolve the ST name via PubMLST (network); without a network
@@ -408,12 +431,13 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
                 return
             group = list(buffer)
             buffer.clear()
+            profiling.add("mlst.genome_group", 0.0)
             dispatched = self._dispatch_loci_group([seq for _, seq in group], step)
             inflight.append((group, dispatched))
             while len(inflight) >= 2:
                 drain_one()
 
-        for record in sequence_input:
+        for record in _timed_steps(sequence_input):
             seq = record.seq
             if buffer and (
                 (len(seq) >= SPLIT_MIN_LENGTH) != (len(buffer[0][1]) >= SPLIT_MIN_LENGTH)
@@ -461,3 +485,16 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
             if score >= 0.5 * locus_size[i]:
                 return True
         return False
+
+
+def _timed_steps(records):
+    """The items of ``records``, each step of its iterator timed as the
+    phase ``mlst.read``."""
+    it = iter(records)
+    while True:
+        with profiling.phase("mlst.read"):
+            try:
+                record = next(it)
+            except StopIteration:
+                return
+        yield record

@@ -163,7 +163,15 @@ class MlstResult:
             "Input_source": self.input_source,
         }
 
+    @profiling.phase("result.save")
     def save(self, output_path: Path | str) -> None:
+        """Write the result JSON: the phases ``result.write`` (the
+        directory), ``result.encode`` and ``result.write`` (the file)
+        under ``result.save``."""
         output_path = Path(output_path)
-        output_path.parent.mkdir(exist_ok=True, parents=True)
-        output_path.write_text(json.dumps(self.to_dict(), indent=4), encoding="utf-8")
+        with profiling.phase("result.write"):
+            output_path.parent.mkdir(exist_ok=True, parents=True)
+        with profiling.phase("result.encode"):
+            text = json.dumps(self.to_dict(), indent=4)
+        with profiling.phase("result.write"):
+            output_path.write_text(text, encoding="utf-8")

@@ -24,8 +24,13 @@ children's:
   ``query.pack`` and ``engine.reads.fetch`` under it), ``model.hits``
   (the ranked hit dictionaries, once a batch or file), and the SVM
   model's ``svm.scores`` and ``svm.head``;
-- under ``result.save``: ``result.scores``, ``result.encode`` (the JSON
-  encoder) and ``result.write`` (the directory, then the file);
+- under ``classify.predict`` for an MLST model: ``mlst.read``,
+  ``mlst.split``, ``mlst.prepare``, ``mlst.query`` (``query.pack`` under
+  it), ``mlst.fetch``, ``mlst.rank`` and ``mlst.lookup``
+  (``models/mlst_model.py``);
+- under ``result.save``: ``result.scores`` (not for an MLST result),
+  ``result.encode`` (the JSON encoder) and ``result.write`` (the
+  directory, then the file);
 - the engine's ``query.pack``, ``query.dispatch`` and ``query.sync``
   (as the JAX package's engine records them);
 - ``model.load`` (a model read from disk: a cache miss, or no cache) and
@@ -34,7 +39,8 @@ children's:
 - the counters ``wire.records_from_parse`` and
   ``wire.records_from_reader`` (:func:`add` with 0.0 seconds): a file
   whose records route took its batches from the parse or from the line
-  reader.
+  reader; ``mlst.length_group`` (a K5 dispatch) and ``mlst.genome_group``
+  (a group of genomes an MLST ``predict`` flushed).
 
 Usage::
 
