@@ -158,12 +158,17 @@ def test_a_traced_tiny_mlst_run_reads_every_new_metric(tmp_path, monkeypatch):
 
 def test_one_classify_mlst_call_reports_each_mlst_phase_and_counter(tmp_path, monkeypatch):
     """A split record is typed in one K5 dispatch for each allele length of
-    the scheme; the MLST result's save has the result phases."""
+    the scheme, from its one encode; the MLST result's save has the result
+    phases."""
+    import types
+
     import numpy as np
 
     from bench_port import synthetic
     from bench_port.tests import tiny_mlst
     from xspect2_tpu_torch import classify, model_cache, profiling
+    from xspect2_tpu_torch.core import dna
+    from xspect2_tpu_torch.models import mlst_model
 
     monkeypatch.setenv("XSPECT_DATA_ROOT", str(tmp_path / "data"))
     plan = tiny_mlst.plan()
@@ -171,6 +176,9 @@ def test_one_classify_mlst_call_reports_each_mlst_phase_and_counter(tmp_path, mo
     genomes, scheme, train_fn = plan["kind"].make_training(config, np.random.default_rng(3), tmp_path / "train")
     train_fn("cpu")
     synthetic.write_fasta(tmp_path / "genome.fasta", [("g0", genomes[0])])
+    encoded = []
+    monkeypatch.setattr(mlst_model, "dna", types.SimpleNamespace(
+        encode=lambda seq: encoded.append(len(seq)) or dna.encode(seq)))
     profiling.reset()
     try:
         classify.classify_mlst(tmp_path / "genome.fasta", config["organism"], config["scheme"],
@@ -181,6 +189,9 @@ def test_one_classify_mlst_call_reports_each_mlst_phase_and_counter(tmp_path, mo
     lengths = len(set(config["loci"].values()))
     assert report["mlst.length_group"]["calls"] == lengths and report["mlst.length_group"]["seconds"] == 0
     assert report["mlst.genome_group"]["calls"] == 1 and report["mlst.genome_group"]["seconds"] == 0
+    assert report["mlst.genome_encode"]["calls"] == 1 and report["mlst.genome_encode"]["seconds"] == 0
+    # one encode of the whole genome, not one a piece
+    assert encoded == [len(genomes[0])]
     for name, calls in (("mlst.split", lengths), ("mlst.prepare", lengths), ("mlst.query", lengths),
                         ("query.pack", lengths), ("mlst.fetch", 1), ("mlst.rank", 1), ("mlst.read", 2),
                         ("classify.predict", 1), ("result.save", 1), ("result.encode", 1), ("result.write", 2)):

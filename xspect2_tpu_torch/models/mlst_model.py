@@ -16,14 +16,16 @@ FASTA (class name = file name up to the first ".", e.g.
 
 Its phases (:mod:`xspect2_tpu_torch.profiling`), under
 ``classify.predict``: ``mlst.read`` (each step of the record iterator),
-``mlst.split`` (the splitter and each piece's ``dna.encode``),
-``mlst.prepare`` (``prepare_batch``), ``mlst.query`` (the wire's upload,
+``mlst.split`` (each record's one ``dna.encode``, in the first length
+group, and each group's piece layout, :func:`piece_layout`),
+``mlst.prepare`` (``batch_from_flat``), ``mlst.query`` (the wire's upload,
 with ``query.pack`` under it, and the fused K4 + K5 + K6 launch),
 ``mlst.fetch`` (the counts' one copy back), ``mlst.rank`` (the ranked
 allele dictionaries and the sufficiency rule) and ``mlst.lookup`` (the
 ST-name lookup); the counters ``mlst.length_group`` (a K5 dispatch: one
-group of loci of one allele length) and ``mlst.genome_group`` (a group
-of genomes flushed by ``predict``).
+group of loci of one allele length), ``mlst.genome_group`` (a group
+of genomes flushed by ``predict``) and ``mlst.genome_encode`` (a record
+encoded).
 
 On the device, the loci whose pieces coincide (equal average allele
 length and engine chunk) share one prepared batch and one packed wire,
@@ -43,16 +45,18 @@ import torch
 
 from xspect2_tpu_torch import native, profiling
 from xspect2_tpu_torch.core import dna
+from xspect2_tpu_torch.core.dna import INVALID
 from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.definitions import slugify
 from xspect2_tpu_torch.io.fasta import SeqRecord, get_record_iterator
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
 from xspect2_tpu_torch.models.result import MlstResult
 from xspect2_tpu_torch.ops.query import (
+    DEFAULT_CHUNK,
     DeviceQueryEngine,
     _next_pow2,
+    batch_from_flat,
     make_multi_packed_query,
-    prepare_batch,
 )
 
 CHUNK_SCORE_THRESHOLD = 50
@@ -198,24 +202,25 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
         multi-index query with the reduction on the device.  Returns
         ``[(device_out, n_out), ...]`` per locus for
         :meth:`_fetch_counts`.  A sequence longer than k always gives a
-        piece, so no batch is empty.
+        piece, so no batch is empty.  Each record is encoded once, and
+        every group's pieces are cut from its codes (:func:`piece_layout`).
         """
         use_split = len(seqs[0]) >= SPLIT_MIN_LENGTH
+        codes = None  # each record's codes, encoded once for every length group
         groups: dict[tuple, dict] = {}
         for li, engine in enumerate(self.engines):
             size = self.avg_locus_bp_size[li] if use_split else None
             key = (size, engine.chunk)
             if key not in groups:
                 with profiling.phase("mlst.split"):
-                    records, seg = [], []
-                    for b, s in enumerate(seqs):
-                        pieces = self.sequence_splitter(s, size) if use_split else [s]
-                        for i, p in enumerate(pieces):
-                            records.append((f"g{b}p{i}", dna.encode(p)))
-                            seg.append(b)
+                    if codes is None:
+                        codes = [dna.encode(s) for s in seqs]
+                        for _ in seqs:
+                            profiling.add("mlst.genome_encode", 0.0)
+                    padded, offsets, names, seg = piece_layout(codes, size, self.k, engine.chunk)
                 with profiling.phase("mlst.prepare"):
-                    batch = prepare_batch(records, self.k, step=step, chunk=engine.chunk)
-                groups[key] = {"batch": batch, "seg": np.asarray(seg, dtype=np.int32), "loci": []}
+                    batch = batch_from_flat(padded, offsets, names, self.k, step)
+                groups[key] = {"batch": batch, "seg": seg, "loci": []}
             groups[key]["loci"].append(li)
 
         dispatched: list[tuple | None] = [None] * len(self.engines)
@@ -485,6 +490,61 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
             if score >= 0.5 * locus_size[i]:
                 return True
         return False
+
+
+def piece_layout(codes: list[np.ndarray], allele_len: int | None, k: int,
+                 chunk: int = DEFAULT_CHUNK):
+    """The pieces of each encoded record, laid end to end as
+    :func:`~xspect2_tpu_torch.ops.query.prepare_batch` lays them out.
+
+    Returns ``(padded, offsets, names, seg)``: the flat code tensor as
+    :func:`~xspect2_tpu_torch.ops.query.pad_codes` sizes it, the pieces'
+    int64 offsets, their names (``g<record>p<piece>``) and each piece's
+    record; :func:`~xspect2_tpu_torch.ops.query.batch_from_flat` makes
+    them the batch that ``prepare_batch`` makes of the splitter's pieces,
+    each through ``dna.encode``.  With ``allele_len`` None each record is
+    one piece.
+
+    The splitter's full pieces start every ``length - k + 1`` bases; they
+    are copied in one strided view of the record's codes, and the bases
+    after the last of them follow it in the buffer: as a piece of their
+    own if there are k or more, else appended to the last piece (as the
+    splitter appends them).
+    """
+    cuts = []  # a record's full pieces, piece length, stride and the bases after its full pieces
+    for c in codes:
+        n = len(c)
+        if allele_len is None:
+            length = n + 1
+        else:  # the splitter's piece length: x1, x10 from 1 Mbp, x100 from 10 Mbp
+            length = allele_len * (1 if n < 1_000_000 else 10 if n < 10_000_000 else 100)
+        stride = length - k + 1
+        if stride <= 0:
+            raise ValueError("pieces must be longer than k - 1")
+        n_full = (n - length) // stride + 1 if n >= length else 0
+        cuts.append((n_full, length, stride, n - n_full * stride))
+    n_pos = sum(n_full * length + tail for n_full, length, _, tail in cuts)
+    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk  # as pad_codes sizes it
+    padded = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
+
+    starts, names, seg = [], [], []
+    at = 0
+    for b, (c, (n_full, length, stride, tail)) in enumerate(zip(codes, cuts)):
+        if n_full:
+            view = np.lib.stride_tricks.as_strided(
+                c, shape=(n_full, length), strides=(stride * c.strides[0], c.strides[0]),
+                writeable=False)
+            padded[at : at + n_full * length].reshape(n_full, length)[:] = view
+        record_starts = at + length * np.arange(n_full, dtype=np.int64)
+        at += n_full * length
+        padded[at : at + tail] = c[n_full * stride :]
+        if tail >= k or not n_full:
+            record_starts = np.append(record_starts, at)
+        at += tail
+        starts.append(record_starts)
+        names += [f"g{b}p{i}" for i in range(len(record_starts))]
+        seg.append(np.full(len(record_starts), b, dtype=np.int32))
+    return padded, np.append(np.concatenate(starts), at), names, np.concatenate(seg)
 
 
 def _timed_steps(records):

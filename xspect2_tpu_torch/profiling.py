@@ -25,8 +25,9 @@ children's:
   (the ranked hit dictionaries, once a batch or file), and the SVM
   model's ``svm.scores`` and ``svm.head``;
 - under ``classify.predict`` for an MLST model: ``mlst.read``,
-  ``mlst.split``, ``mlst.prepare``, ``mlst.query`` (``query.pack`` under
-  it), ``mlst.fetch``, ``mlst.rank`` and ``mlst.lookup``
+  ``mlst.split`` (each record's one ``dna.encode`` and each length
+  group's piece layout), ``mlst.prepare``, ``mlst.query`` (``query.pack``
+  under it), ``mlst.fetch``, ``mlst.rank`` and ``mlst.lookup``
   (``models/mlst_model.py``);
 - under ``result.save``: ``result.scores`` (not for an MLST result),
   ``result.encode`` (the JSON encoder) and ``result.write`` (the
@@ -39,8 +40,9 @@ children's:
 - the counters ``wire.records_from_parse`` and
   ``wire.records_from_reader`` (:func:`add` with 0.0 seconds): a file
   whose records route took its batches from the parse or from the line
-  reader; ``mlst.length_group`` (a K5 dispatch) and ``mlst.genome_group``
-  (a group of genomes an MLST ``predict`` flushed).
+  reader; ``mlst.length_group`` (a K5 dispatch), ``mlst.genome_group``
+  (a group of genomes an MLST ``predict`` flushed) and
+  ``mlst.genome_encode`` (a record the MLST model encoded).
 
 Usage::
 
