@@ -97,6 +97,20 @@ def test_port_sources_name_no_jax_import():
     } <= {p.name for p in sources}
 
 
+def test_only_ops_query_knows_how_a_prepared_batch_reaches_the_card():
+    """The record-slot rule (``_next_pow2``) and the K4 restore of a batch
+    (``restore_records_wire``) are ``ops/query.py``'s: every other module
+    counts a batch through ``restore_batch`` and the batch's properties."""
+    pattern = re.compile(r"\b(_next_pow2|restore_records_wire)\b")
+    query_py = PORT / "ops" / "query.py"
+    hits = sorted(
+        str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
+        if p != query_py and pattern.search(p.read_text(encoding="utf-8"))
+    )
+    assert hits == []
+    assert {"_next_pow2", "restore_records_wire"} <= set(pattern.findall(query_py.read_text(encoding="utf-8")))
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, data_root, tmp_path):
     from xspect2_tpu_torch import download_models, reference_import, train
 

@@ -85,6 +85,32 @@ def test_plain_restore_equals_the_jax_prepared_batch(k, step):
             np.testing.assert_array_equal(codes[:real], want.codes[:real])
 
 
+@pytest.mark.parametrize("num_records", [1, 8, 9, 65_536])
+def test_a_batch_states_its_record_slots_and_shortest_record(num_records):
+    """``max_records`` is the record count rounded up to a power of two, at
+    least 8; ``min_record_len`` the shortest record; ``restore_batch``
+    restores the wire uploaded at that capacity."""
+    rng = np.random.default_rng(num_records)
+    k, step = 5, 2
+    lengths = rng.integers(k + 1, k + 20, size=num_records)
+    offsets = np.concatenate([[0], np.cumsum(lengths)])
+    codes = rng.integers(0, 4, size=int(offsets[-1]), dtype=np.uint8)
+    names = [f"r{i}" for i in range(num_records)]
+    batch = query.batch_from_flat(query.pad_codes(codes, k, CHUNK), offsets, names, k, step)
+    slots = {1: 8, 8: 8, 9: 16, 65_536: 65_536}[num_records]
+    assert (batch.max_records, batch.min_record_len, batch.k) == (slots, int(lengths.min()), k)
+    assert batch.num_positions == query.padded_positions(len(codes), CHUNK)
+    restored, rec_ids, valid = query.restore_batch(batch, "cpu")
+    assert list(batch._device_wire) == [(slots, "cpu")]
+    n_real = len(codes)
+    assert np.array_equal(restored[:n_real].numpy(), codes)
+    assert np.array_equal(rec_ids[:n_real].numpy(), batch.rec_ids[:n_real])
+    assert np.array_equal(valid.numpy(), batch.valid)
+    reads = rng.integers(0, 4, size=(num_records, k + 1), dtype=np.uint8)
+    fixed = query.prepare_fixed_batch(reads, k, chunk=CHUNK)
+    assert (fixed.max_records, fixed.min_record_len, fixed.k) == (slots, None, k)
+
+
 @pytest.mark.parametrize("name", ["c8_p4_h2", "c40_cw2_h7"])
 @pytest.mark.parametrize("step", [1, 3])
 def test_records_query_on_the_restored_wire_equals_the_jax_packed_query(name, step):

@@ -26,7 +26,7 @@ from xspect2_tpu.models.single_filter_model import ProbabilisticSingleFilterMode
 from xspect2_tpu_torch import classify, model_cache
 from xspect2_tpu_torch.core import compat, dna, xxh3
 from xspect2_tpu_torch.io.fasta import SeqRecord
-from xspect2_tpu_torch.models import single_filter_model
+from xspect2_tpu_torch.models import filter_model
 from xspect2_tpu_torch.models.single_filter_model import ProbabilisticSingleFilterModel
 from xspect2_tpu_torch.ops import bloom, query
 
@@ -204,8 +204,7 @@ def test_predict_over_a_multi_record_file_writes_the_jax_json(tmp_path, monkeypa
     fasta = tmp_path / "in.fasta"
     jax_write_fasta(records, fasta)
     # three record batches: the model launches once per batch, not per record
-    monkeypatch.setattr(single_filter_model.ProbabilisticSingleFilterModel, "_iter_record_batches",
-                        lambda self, recs: (lambda r: (r[i : i + 6] for i in range(0, len(r), 6)))(list(recs)))
+    monkeypatch.setattr(filter_model, "_MAX_RECORD_BATCH_RECORDS", 6)
     calls = []
     real = compat.XXH3BloomFilter.count_hits_batch
     monkeypatch.setattr(compat.XXH3BloomFilter, "count_hits_batch",
@@ -219,6 +218,26 @@ def test_predict_over_a_multi_record_file_writes_the_jax_json(tmp_path, monkeypa
     assert got.hits["c3"] == {"metagenome": -(-(150 + 37 * 3 - 21 + 1) // step)}
     assert got.hits["k_plus_one"] == {"metagenome": -(-2 // step)}  # 22 bases: two windows
     assert got.num_kmers["gap"] == -(-(704 - 20) // step)
+
+
+def test_a_reads_file_takes_the_records_route_and_writes_the_jax_json(tmp_path, monkeypatch):
+    """A FASTQ of 520 reads of one length, which would take a blocked
+    model's reads route, takes the records route under the xxh3 filter."""
+    rng = np.random.default_rng(17)
+    genome = random_dna(rng, 10_000)
+    jax_model, model = _fit_both(tmp_path, genome)
+    reads = [genome[s : s + 100] for s in rng.integers(0, 9_900, size=400)]
+    reads += [random_dna(rng, 100) for _ in range(119)] + [genome[:50] + "N" * 10 + genome[60:100]]
+    fastq = tmp_path / "reads.fastq"
+    fastq.write_text("".join(f"@r{i}\n{seq}\n+\n{'I' * len(seq)}\n" for i, seq in enumerate(reads)),
+                     encoding="utf-8")
+    monkeypatch.setattr(filter_model.ProbabilisticFilterModel, "_count_reads",
+                        lambda *a: pytest.fail("reads route"))
+    for kwargs in ({}, {"step": 3, "display_name": True}):
+        got = model.predict(fastq, **kwargs)
+        want = jax_model.predict(fastq, **kwargs)
+        assert json.dumps(got.to_dict()) == json.dumps(want.to_dict())
+    assert len(got.hits) == 520 and got.hits["r0"] == {"metagenome - metagenome": -(-80 // 3)}
 
 
 def test_a_record_of_at_most_k_bases_raises_in_batch_mode(tmp_path):

@@ -39,12 +39,7 @@ from xspect2_tpu_torch import resolve_device
 from xspect2_tpu_torch.core import dna
 from xspect2_tpu_torch.core.xxh3 import xxh3_64_batch
 from xspect2_tpu_torch.ops.bloom import bloom_count, xxh3_records_count
-from xspect2_tpu_torch.ops.query import (
-    PreparedBatch,
-    _next_pow2,
-    restore_records_wire,
-    upload_records_wire,
-)
+from xspect2_tpu_torch.ops.query import PreparedBatch, restore_batch
 
 # k-mer windows hashed per pass of insert_sequence: bounds the host
 # memory of a whole-genome insert (the OR into the filter is order-free)
@@ -231,22 +226,18 @@ class XXH3BloomFilter:
         :meth:`count_hits_host` gives it on the record's canonical k-mers
         at the batch's step.
 
-        Everything runs on the device: K4 restores the codes, record ids
-        and validity from the batch's compact wire in one launch, K7
-        (:func:`~xspect2_tpu_torch.ops.bloom.xxh3_records_count`) hashes
-        and tests every valid window, one launch each, and one fetch
-        brings the counts back.
+        Everything runs on the device: K4 restores the batch
+        (:func:`~xspect2_tpu_torch.ops.query.restore_batch`), one launch
+        of K7 (:func:`~xspect2_tpu_torch.ops.bloom.xxh3_records_count`)
+        hashes and tests every valid window, and one fetch brings the
+        counts back.
         """
         words = self.device_words()
-        max_records = _next_pow2(max(8, batch.num_records))
-        codes, rec_ids, valid = restore_records_wire(
-            *upload_records_wire(batch, max_records, words.device), batch.num_positions,
-            k=self.k, step=batch.step,
-        )
+        codes, rec_ids, valid = restore_batch(batch, words.device)
         counts = xxh3_records_count(
-            words, codes, rec_ids, valid, max_records=max_records, k=self.k,
+            words, codes, rec_ids, valid, max_records=batch.max_records, k=self.k,
             num_bits=self.num_bits, num_hashes=self.num_hashes,
-            min_record_len=int(np.diff(batch.offsets).min()),
+            min_record_len=batch.min_record_len,
         )
         return counts[: batch.num_records].cpu().numpy().astype(np.int64)
 

@@ -191,12 +191,24 @@ class ProbabilisticFilterModel:
             self._engine = DeviceQueryEngine(self.index, device=self.device)
         return self._engine
 
+    def _class_names(self) -> list[str]:
+        """The classes of the columns :meth:`_count_batch` counts."""
+        return self.index.class_names
+
+    def _batch_chunk(self) -> int:
+        """The chunk the records route pads its batches to."""
+        return self.engine.chunk
+
+    def _count_batch(self, batch: PreparedBatch) -> np.ndarray:
+        """The records route's hits: int64 [batch.num_records, len(self._class_names())]."""
+        return self.engine.count_hits(batch)
+
     def _hits_dict_from_counts(
         self, counts: np.ndarray, exclude_ids: list[str] | None
     ) -> dict[str, int]:
         """One record's {class: hits} dict, ranked like a COBS search
         result (descending count, ties by name)."""
-        names = self.index.class_names
+        names = self._class_names()
         order = sorted(range(len(names)), key=lambda i: (-int(counts[i]), names[i]))
         excluded = set(exclude_ids) if exclude_ids else ()
         return {names[i]: int(counts[i]) for i in order if names[i] not in excluded}
@@ -205,9 +217,8 @@ class ProbabilisticFilterModel:
         self, counts: np.ndarray, exclude_ids: list[str] | None, display_name: bool
     ) -> dict[str, int]:
         rec_hits = self._hits_dict_from_counts(counts, exclude_ids)
-        return self._with_display_names(rec_hits) if display_name else rec_hits
-
-    def _with_display_names(self, rec_hits: dict[str, int]) -> dict[str, int]:
+        if not display_name:
+            return rec_hits
         return {
             f"{key} -{self.display_names.get(key, 'Unknown').replace(self.model_display_name, '', 1)}": v
             for key, v in rec_hits.items()
@@ -255,12 +266,13 @@ class ProbabilisticFilterModel:
         length, parsed natively into one [N, L] matrix.  Any other file
         takes the records route: then the parse ``(codes, offsets, ids)``
         is returned for it, or None when the native library is not
-        available (as the JAX package does)."""
+        available (as the JAX package does), and for every file of a
+        model without a blocked index (the xxh3 genus filter)."""
         if not native.available():
             return None
         codes, offsets, ids = parsed = native.parse_file(path)
         n = len(ids)
-        if n < _MIN_FAST_READS:
+        if n < _MIN_FAST_READS or self.index is None:
             return parsed
         lengths = np.diff(offsets)
         if not (lengths == lengths[0]).all():
@@ -307,7 +319,7 @@ class ProbabilisticFilterModel:
             with profiling.phase("wire.encode"):
                 encoded = [(rec.id, dna.encode(rec.seq)) for rec in rec_batch]
             with profiling.phase("wire.prepare"):
-                batch = prepare_batch(encoded, self.k, step=step, chunk=self.engine.chunk)
+                batch = prepare_batch(encoded, self.k, step=step, chunk=self._batch_chunk())
             if kept is not None:
                 kept.extend(rec_batch)
             yield batch
@@ -341,7 +353,7 @@ class ProbabilisticFilterModel:
                 lo, hi = offsets[start], offsets[end]
                 rec_offsets = offsets[start : end + 1] - lo
             with profiling.phase("wire.encode"):
-                padded = pad_codes(codes[lo:hi], self.k, self.engine.chunk)
+                padded = pad_codes(codes[lo:hi], self.k, self._batch_chunk())
             with profiling.phase("wire.prepare"):
                 batch = batch_from_flat(padded, rec_offsets, ids[start:end], self.k, step)
             start = end
@@ -378,7 +390,7 @@ class ProbabilisticFilterModel:
         hits: dict[str, dict[str, int]] = {}
         num_kmers: dict[str, int] = {}
         for batch in batches:
-            counts = self.engine.count_hits(batch)
+            counts = self._count_batch(batch)
             with profiling.phase("model.hits"):
                 for i, rid in enumerate(batch.record_names):
                     hits[rid] = self._record_hits(counts[i], exclude_ids, display_name)

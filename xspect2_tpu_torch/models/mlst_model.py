@@ -54,9 +54,9 @@ from xspect2_tpu_torch.models.result import MlstResult
 from xspect2_tpu_torch.ops.query import (
     DEFAULT_CHUNK,
     DeviceQueryEngine,
-    _next_pow2,
     batch_from_flat,
     make_multi_packed_query,
+    padded_positions,
 )
 
 CHUNK_SCORE_THRESHOLD = 50
@@ -227,7 +227,6 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
         for group in groups.values():
             batch, seg, loci = group["batch"], group["seg"], group["loci"]
             engines = [self.engines[li] for li in loci]
-            max_records = _next_pow2(max(8, batch.num_records))
             profiling.add("mlst.length_group", 0.0)
             with profiling.phase("mlst.query"):
                 fused = make_multi_packed_query(
@@ -244,10 +243,10 @@ class ProbabilisticFilterMlstSchemeModel(ProbabilisticFilterModel):
                 if num_segments is not None:
                     # padded record slots count no hit, so the segment they
                     # map to is unaffected
-                    seg_pad = np.zeros(max_records, dtype=np.int32)
+                    seg_pad = np.zeros(batch.max_records, dtype=np.int32)
                     seg_pad[: len(seg)] = seg
                     seg_ids = torch.from_numpy(seg_pad).to(self.device)
-                wire = engines[0].upload_records_wire(batch, max_records)
+                wire = engines[0].upload_records_wire(batch, batch.max_records)
                 outs = fused([e.table for e in engines], *wire, seg_ids)
             for li, out in zip(loci, outs):
                 dispatched[li] = (out, n_out)
@@ -524,8 +523,7 @@ def piece_layout(codes: list[np.ndarray], allele_len: int | None, k: int,
         n_full = (n - length) // stride + 1 if n >= length else 0
         cuts.append((n_full, length, stride, n - n_full * stride))
     n_pos = sum(n_full * length + tail for n_full, length, _, tail in cuts)
-    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk  # as pad_codes sizes it
-    padded = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
+    padded = np.full(padded_positions(n_pos, chunk) + k - 1, INVALID, dtype=np.uint8)
 
     starts, names, seg = [], [], []
     at = 0

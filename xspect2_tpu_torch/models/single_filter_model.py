@@ -8,9 +8,10 @@ One Bloom-filter column holding the canonical k-mers of a whole genus.
   species model.
 - ``"xxh3"``: the compat mode (:mod:`xspect2_tpu_torch.core.compat`):
   XXH3-64 over the ASCII canonical k-mer string; a parity and
-  verification mode.  Its queries take the records route in batches:
-  K4 restores each batch on the device in one launch and K7 hashes,
-  tests and counts every record's windows there, one launch per batch.
+  verification mode.  Every query takes the filter model's records
+  route with this filter's counter, class name and padding chunk: K4
+  restores each batch and K7 hashes, tests and counts every record's
+  windows on the device, one launch per batch.
 """
 
 import json
@@ -22,8 +23,7 @@ from xspect2_tpu_torch.core.blocked_index import BlockedBitSlicedIndex
 from xspect2_tpu_torch.core.compat import XXH3BloomFilter
 from xspect2_tpu_torch.io.fasta import get_record_iterator
 from xspect2_tpu_torch.models.filter_model import ProbabilisticFilterModel
-from xspect2_tpu_torch.models.result import ModelResult
-from xspect2_tpu_torch.ops.query import prepare_batch
+from xspect2_tpu_torch.ops.query import DEFAULT_CHUNK, prepare_batch
 
 
 class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
@@ -106,14 +106,21 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
 
     # ------------------------------------------------- xxh3 compat mode
 
-    def _compat_class_name(self) -> str:
+    def _class_names(self) -> list[str]:
+        if self.compat_filter is None:
+            return super()._class_names()
         # single-class model: the one trained genus file's stem
-        return next(iter(self.display_names), "metagenome")
+        return [next(iter(self.display_names), "metagenome")]
 
-    def _compat_counts(self, records, step: int) -> tuple[list[int], list[int]]:
-        """Hits and k-mer counts of ``(name, codes)`` records: one device batch."""
-        batch = prepare_batch(records, self.k, step=step)
-        return self.compat_filter.count_hits_batch(batch).tolist(), batch.num_kmers
+    def _batch_chunk(self) -> int:
+        if self.compat_filter is None:
+            return super()._batch_chunk()
+        return DEFAULT_CHUNK  # prepare_batch's own, so K7 launches at its shapes
+
+    def _count_batch(self, batch):
+        if self.compat_filter is None:
+            return super()._count_batch(batch)
+        return self.compat_filter.count_hits_batch(batch)[:, None]
 
     def calculate_hits(self, sequence, exclude_ids: list[str] | None = None, step: int = 1) -> dict:
         if self.compat_filter is None:
@@ -123,43 +130,11 @@ class ProbabilisticSingleFilterModel(ProbabilisticFilterModel):
             seq = str(seq)
         if not len(seq) > self.k:
             raise ValueError("Invalid sequence, must be longer than k")
-        name = self._compat_class_name()
+        (name,) = self._class_names()
         if exclude_ids and name in exclude_ids:
             return {}
-        counts, _ = self._compat_counts([("seq", dna.encode(seq))], step)
-        return {name: counts[0]}
-
-    def predict(
-        self,
-        sequence_input,
-        exclude_ids: list[str] | None = None,
-        step: int = 1,
-        display_name: bool = False,
-        validation: bool = False,
-    ) -> ModelResult:
-        if self.compat_filter is None:
-            return super().predict(sequence_input, exclude_ids, step, display_name, validation)
-        name = self._compat_class_name()
-        excluded = bool(exclude_ids) and name in exclude_ids
-        hits: dict[str, dict[str, int]] = {}
-        num_kmers: dict[str, int] = {}
-        kept_records = []
-        for rec_batch in self._iter_record_batches(self._as_record_iterable(sequence_input)):
-            # a record of at most k bases raises here, as calculate_hits does
-            counts, kmers = self._compat_counts(
-                [(rec.id, dna.encode(str(rec.seq))) for rec in rec_batch], step
-            )
-            for rec, count, nk in zip(rec_batch, counts, kmers):
-                rec_hits = {} if excluded else {name: count}
-                hits[rec.id] = self._with_display_names(rec_hits) if display_name else rec_hits
-                num_kmers[rec.id] = nk
-            if validation:
-                kept_records.extend(rec_batch)
-        if not hits:
-            raise ValueError("No sequences found in input")
-        if validation:
-            hits = self.detecting_misclassification(hits, kept_records)
-        return ModelResult(self.slug(), hits, num_kmers, sparse_sampling_step=step)
+        batch = prepare_batch([("seq", dna.encode(seq))], self.k, step=step)
+        return {name: int(self.compat_filter.count_hits_batch(batch)[0])}
 
     # ------------------------------------------------------- persistence
 

@@ -19,7 +19,8 @@ Ragged records (assemblies, record lists):
    stream padded to a power-of-two number of chunks
    (:class:`PreparedBatch`); :func:`packed_wire_for_batch` 2-bit packs
    it with a flat invalid-base patch list and the record offsets;
-2. :func:`restore_records_wire` (kernel K4, ``csrc/records_wire.cu``)
+2. :func:`restore_batch` uploads that wire and
+   :func:`restore_records_wire` (kernel K4, ``csrc/records_wire.cu``)
    restores the codes, each position's record id and its window
    validity in one launch;
 3. :func:`records_query` (kernel K3, ``csrc/records_query.cu``) counts
@@ -171,6 +172,21 @@ class PreparedBatch:
         return len(self.record_names)
 
     @property
+    def k(self) -> int:
+        """The k the batch was prepared at (its codes end in a k-1 halo)."""
+        return len(self.codes) - self.num_positions + 1
+
+    @property
+    def max_records(self) -> int:
+        """Record slots of its device counts: the record count up to a power of two, >= 8."""
+        return _next_pow2(max(8, self.num_records))
+
+    @property
+    def min_record_len(self) -> int | None:
+        """The shortest record, the counting kernels' block-sizing hint (None without offsets)."""
+        return None if self.offsets is None else int(np.diff(self.offsets).min())
+
+    @property
     def rec_ids(self) -> np.ndarray:
         """int32 [num_positions]: each position's record, 0 on padding."""
         if self._rec_ids is None:
@@ -186,7 +202,6 @@ class PreparedBatch:
         return self._valid
 
     def _make_position_arrays(self) -> None:
-        k = len(self.codes) - self.num_positions + 1  # the codes end in a k-1 halo
         lengths = np.diff(self.offsets)
         n_real = int(self.offsets[-1])
         owner = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
@@ -194,15 +209,20 @@ class PreparedBatch:
         self._rec_ids = np.zeros(self.num_positions, dtype=np.int32)
         self._rec_ids[:n_real] = owner
         self._valid = np.zeros(self.num_positions, dtype=bool)
-        self._valid[:n_real] = (rel <= (lengths - k)[owner]) & (rel % self.step == 0)
+        self._valid[:n_real] = (rel <= (lengths - self.k)[owner]) & (rel % self.step == 0)
+
+
+def padded_positions(n_pos: int, chunk: int = DEFAULT_CHUNK) -> int:
+    """Positions of a batch's flat code tensor for ``n_pos`` bases, its k-1
+    halo aside: a power-of-two number of ``chunk``-sized chunks, at least one."""
+    return _next_pow2(max(1, -(-n_pos // chunk))) * chunk
 
 
 def pad_codes(codes: np.ndarray, k: int, chunk: int = DEFAULT_CHUNK) -> np.ndarray:
-    """Records' codes laid end to end, as a batch's flat code tensor: a
-    power-of-two number of ``chunk``-sized chunks plus a k-1 halo, the
-    padding invalid."""
+    """Records' codes laid end to end, as a batch's flat code tensor:
+    :func:`padded_positions` plus a k-1 halo, the padding invalid."""
     n_pos = len(codes)
-    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
+    n_pad = padded_positions(n_pos, chunk)
     padded = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
     padded[:n_pos] = codes
     return padded
@@ -252,7 +272,7 @@ def prepare_fixed_batch(
         raise ValueError("Invalid sequence, must be longer than k")
     nk = length - k + 1
     n_pos = n * length
-    n_pad = _next_pow2(max(1, -(-n_pos // chunk))) * chunk
+    n_pad = padded_positions(n_pos, chunk)
 
     codes = np.full(n_pad + k - 1, INVALID, dtype=np.uint8)
     codes[:n_pos] = codes_matrix.reshape(-1)
@@ -327,6 +347,16 @@ def upload_records_wire(batch: PreparedBatch, max_records: int, device):
         dev = wire_to_device(packed_wire_for_batch(batch, max_records), device)
         batch._device_wire[key] = dev
     return dev
+
+
+def restore_batch(batch: PreparedBatch, device):
+    """A prepared batch's ``(codes, rec_ids, valid)`` on ``device``: its compact
+    wire uploaded at :attr:`PreparedBatch.max_records` (:func:`upload_records_wire`,
+    cached on the batch) and restored by K4 at the batch's positions, k and step."""
+    packed, bad_pos, offsets = upload_records_wire(batch, batch.max_records, device)
+    return restore_records_wire(
+        packed, bad_pos, offsets, batch.num_positions, k=batch.k, step=batch.step
+    )
 
 
 # ---------------------------------------------------------------- K1: unpack
@@ -1255,9 +1285,8 @@ class DeviceQueryEngine:
     def count_hits(self, batch: PreparedBatch, block: bool = True, wire: str = "auto"):
         """Hit counts of a prepared batch: int64 [batch.num_records, num_classes].
 
-        With ``block=False`` the padded int32 [max_records, C] device
-        tensor is returned without synchronizing (``max_records`` is the
-        record count rounded up to a power of two, at least 8).
+        With ``block=False`` the padded int32 [batch.max_records, C]
+        device tensor is returned without synchronizing.
         ``wire="packed"`` ships 2-bit codes, a patch list and the record
         offsets, and derives record ids and validity on the device;
         ``wire="raw"`` ships codes, record ids and validity as they are.
@@ -1279,24 +1308,21 @@ class DeviceQueryEngine:
             wire = "packed" if batch.offsets is not None else "raw"
         if batch.num_records == 0:
             return np.zeros((0, idx.num_classes), dtype=np.int64)
-        max_records = _next_pow2(max(8, batch.num_records))
         if wire == "packed":
-            # the host packing, once a batch, is the phase "query.pack"
-            packed, bad_pos, offsets = self.upload_records_wire(batch, max_records)
+            # the host packing and the upload, once a batch, stay out of
+            # "query.dispatch": restore_batch finds them cached
+            self.upload_records_wire(batch, batch.max_records)
         with profiling.phase("query.dispatch"):
             if wire == "packed":
-                codes, rec_ids, valid = restore_records_wire(
-                    packed, bad_pos, offsets, batch.num_positions, k=idx.k, step=batch.step
-                )
+                codes, rec_ids, valid = restore_batch(batch, self.device)
             else:
                 codes, rec_ids, valid = (
                     torch.from_numpy(a).to(self.device)
                     for a in (batch.codes, batch.rec_ids, batch.valid)
                 )
-            shortest = None if batch.offsets is None else int(np.diff(batch.offsets).min())
             out = records_query(
-                codes, rec_ids, valid, self.table, max_records=max_records,
-                min_record_len=shortest, **self.geometry(),
+                codes, rec_ids, valid, self.table, max_records=batch.max_records,
+                min_record_len=batch.min_record_len, **self.geometry(),
             )
         if not block:
             return out

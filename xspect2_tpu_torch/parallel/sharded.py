@@ -42,14 +42,12 @@ from xspect2_tpu_torch.models.svm_head import SVMHead
 from xspect2_tpu_torch.ops.query import (
     DEFAULT_CHUNK,
     PreparedBatch,
-    _next_pow2,
     pack_reads_wire,
     prepare_batch,
     reads_query,
     records_query,
-    restore_records_wire,
+    restore_batch,
     unpack_2bit,
-    upload_records_wire,
     wire_to_device,
 )
 from xspect2_tpu_torch.parallel.mesh import CLS_AXIS, DATA_AXIS
@@ -193,8 +191,7 @@ class ShardedClassifier:
 
         # an empty shard is one chunk of padding
         batches = [prepare_batch(shard, self.index.k, step, self.chunk) for shard in shards]
-        max_records = _next_pow2(max(8, max(b.num_records for b in batches) or 1))
-        return batches, max_records
+        return batches, max(b.max_records for b in batches)
 
     def prepare_shard_batches(self, records, step: int = 1):
         """Split (name, codes) records across data shards; returns stacked
@@ -225,13 +222,10 @@ class ShardedClassifier:
         geom = self.shard_geometry(coords[1])
         if batch.num_records == 0:
             return torch.zeros((max_records, geom["num_classes"]), dtype=torch.int32, device=self.device)
-        packed, bad_pos, offsets = upload_records_wire(batch, max_records, self.device)
-        codes, rec_ids, valid = restore_records_wire(
-            packed, bad_pos, offsets, batch.num_positions, k=self.index.k, step=batch.step
-        )
+        codes, rec_ids, valid = restore_batch(batch, self.device)
         return records_query(
             codes, rec_ids, valid, self.table_shard(coords[1]), max_records=max_records,
-            min_record_len=int(np.diff(batch.offsets).min()), **geom,
+            min_record_len=batch.min_record_len, **geom,
         )
 
     def score(self, total_hits: torch.Tensor, total_kmers: torch.Tensor):
